@@ -1,0 +1,72 @@
+"""ctypes bridge to the native host library (native/libnbody_host.so).
+
+Two entry points of that library are used: the glibc-rand init loop (large
+N: milliseconds against seconds in Python) and the snprintf final-state
+formatter (the reference's own printf semantics).  Both are bit-identical to
+the Python implementations, which remain the fallback when the library is
+missing or does not load (``make -C native`` builds it).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+
+import numpy as np
+
+_NATIVE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "native")
+_LIB_PATH = os.path.join(_NATIVE_DIR, "libnbody_host.so")
+
+
+@functools.cache
+def load():
+    """Load the native library; None if it is missing or does not load."""
+    try:
+        lib = ctypes.CDLL(_LIB_PATH)
+    except OSError:
+        return None
+    dptr = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+    lib.nbody_init.argtypes = [ctypes.c_uint32, ctypes.c_int64,
+                               ctypes.c_int32, ctypes.c_int32,
+                               dptr, dptr, dptr, dptr, dptr, dptr]
+    lib.nbody_init.restype = None
+    lib.nbody_format_state.argtypes = [
+        ctypes.c_int64, dptr, dptr, dptr, dptr, dptr, dptr,
+        ctypes.c_char_p, ctypes.c_int64]
+    lib.nbody_format_state.restype = ctypes.c_int64
+    return lib
+
+
+def available() -> bool:
+    return load() is not None
+
+
+def nbody_init(n: int, xdim: int, ydim: int, seed: int):
+    """Native reference init; returns (x, y, xv, yv, mass, radius) float64."""
+    lib = load()
+    if lib is None:
+        raise RuntimeError("native library %s is unavailable" % _LIB_PATH)
+    arrs = [np.empty(n, np.float64) for _ in range(6)]
+    lib.nbody_init(seed, n, xdim, ydim, *arrs)
+    return tuple(arrs)
+
+
+def format_state_native(x, y, xf, yf, xv, yv) -> str | None:
+    """Reference final-state printout via C snprintf (exact printf
+    semantics); None when the library is unavailable."""
+    lib = load()
+    if lib is None:
+        return None
+    n = x.shape[0]
+    # %10.3f widens for huge magnitudes; 64 bytes/field is ample headroom.
+    line_cap = 6 * 64
+    buf = ctypes.create_string_buffer(n * line_cap + 1)
+    args = [np.ascontiguousarray(a, np.float64)
+            for a in (x, y, xf, yf, xv, yv)]
+    nbytes = lib.nbody_format_state(n, *args, buf, line_cap)
+    if nbytes < 0:
+        return None
+    return buf.raw[:nbytes].decode("ascii")

@@ -8,12 +8,15 @@ plus the JAX package's extensions, parsed the same way (cli.py of
 ``parallel_nbody_tpu``).  It runs one single-device simulation:
 
     --fast            transcendental-free force path
-    --pallas          the hand-written CUDA force kernel (implies --fast;
-                      the flag keeps the JAX package's name).  On a CPU
-                      device the kernel's plain PyTorch version runs.
+    --pallas          the hand-written CUDA force kernels (implies --fast;
+                      the flag keeps the JAX package's name): K1, or K2
+                      above 131072 bodies.  On a CPU device the kernels'
+                      plain PyTorch versions run.
     --dtype=T         bfloat16 | float32 | float64 (default: float64 on
                       cpu, float32 on cuda)
     --no-clamp        allow N > 10000 (the reference clamps to MAXBODIES)
+    --accum=A         plain | compensated (Kahan folds in the kernels'
+                      partial sums; the dense path ignores it)
     --run-xps         print the experiment CSV row instead of the state
     --openmp, --measure-comm, --xps-precise, --devices=1, --comm=allgather
                       accepted with the JAX CLI's single-device meaning
@@ -22,8 +25,8 @@ plus the JAX package's extensions, parsed the same way (cli.py of
                       launches, so the per-dispatch cap always holds
 
 Not yet ported; each exits 1 naming the flag: --devices=K>1, --mesh2d,
---comm=ring, --checkpoint, --resume, --trace, --check-nans,
---accum=compensated, and secs_per_update > 0 (frame rendering).
+--comm=ring, --checkpoint, --resume, --trace, --check-nans, and
+secs_per_update > 0 (frame rendering).
 
 The device comes from ``NBODY_PLATFORM=cpu|cuda``; unset, it is cuda when a
 GPU is present and cpu otherwise.  Requesting cuda without a GPU exits 1.
@@ -188,7 +191,6 @@ def _unported(secsup: int, opts) -> str | None:
         (opts["resume"] is not None, "--resume"),
         (opts["trace"] is not None, "--trace"),
         (opts["check_nans"], "--check-nans"),
-        (opts["accum"] == "compensated", "--accum=compensated"),
         (secsup > 0, "secs_per_update > 0 (frame rendering)"),
     ]
     for requested, name in checks:
@@ -242,16 +244,12 @@ def main(argv=None) -> int:
         sys.stderr.write("Cannot read %s: %s\n" % (ppm_path, e))
         return 1
 
-    try:
-        cfg = SimConfig(
-            xdim=ppm.xdim, ydim=ppm.ydim,
-            force_mode="fast" if opts["fast"] else "trig",
-            dtype=opts["dtype"],
-            kernel="cuda" if opts["pallas"] else "dense",
-            accum=opts["accum"])
-    except NotImplementedError as e:
-        sys.stderr.write("%s\n" % e)
-        return 1
+    cfg = SimConfig(
+        xdim=ppm.xdim, ydim=ppm.ydim,
+        force_mode="fast" if opts["fast"] else "trig",
+        dtype=opts["dtype"],
+        kernel="cuda" if opts["pallas"] else "dense",
+        accum=opts["accum"])
 
     sys.stderr.write("Running N-body with %i bodies and %i steps\n"
                      % (n, steps))
@@ -259,7 +257,7 @@ def main(argv=None) -> int:
 
     if device.type == "cuda":
         # One discarded step outside the timed region: it builds the CUDA
-        # kernel (nvcc, at first use) and launches it once, and warms the
+        # kernels (nvcc, at first use), launches the step's one, and warms the
         # sort and elementwise kernels — the counterpart of the JAX CLI's
         # AOT compile, so no build lands inside RTIME.
         if steps > 0:

@@ -41,11 +41,14 @@ class SimConfig:
       dtype: element type of the state tensors ("bfloat16", "float32" or
         "float64").  Parity runs use float64.
       kernel: ``"dense"`` materializes the (N, N) pair matrix with plain
-        tensor ops; ``"cuda"`` runs the hand-written all-pairs kernel
-        (csrc/forces.cu, ops/cuda_step.py).  ``"xla"`` and ``"pallas"`` (the
-        JAX package's names) map to them.
-      accum: ``"plain"`` sums force partials directly.  ``"compensated"``
-        (Kahan partial sums) is not ported yet.
+        tensor ops; ``"cuda"`` runs the hand-written all-pairs kernels
+        (csrc/, ops/cuda_step.py).  ``"xla"`` and ``"pallas"`` (the JAX
+        package's names) map to them.  With ``"cuda"``, bfloat16 is a
+        storage format: the kernels compute and sum in float32.
+      accum: ``"plain"`` sums force partials directly; ``"compensated"``
+        Kahan-folds the CUDA kernels' partial sums (per column tile, and
+        across column bands above 131072 bodies).  The dense path ignores
+        it, as the JAX package's does.
     """
 
     xdim: int = 1024
@@ -80,15 +83,9 @@ class SimConfig:
             raise ValueError(
                 "unsupported dtype %r (expected bfloat16, float32 or "
                 "float64)" % (self.dtype,))
-        if self.accum == "compensated":
-            raise NotImplementedError(
-                "accum='compensated' is not yet ported to the CUDA kernel")
-        if self.accum != "plain":
-            raise ValueError("unsupported accum %r (expected plain)"
-                             % (self.accum,))
-        if self.kernel == "cuda" and self.dtype == "bfloat16":
-            raise NotImplementedError(
-                "bfloat16 storage with kernel='cuda' is not yet ported")
+        if self.accum not in ("plain", "compensated"):
+            raise ValueError("unsupported accum %r (expected plain or "
+                             "compensated)" % (self.accum,))
 
     @property
     def torch_dtype(self) -> torch.dtype:

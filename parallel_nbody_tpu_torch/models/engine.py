@@ -4,7 +4,8 @@ The reference's hot loop (nbody-seq.c:457-472) is
 ``clear_forces -> compute_forces -> compute_velocities -> compute_positions``
 with a buffer flip.  Here ``run`` is a Python loop of ``step``, each step a
 sequence of eager tensor ops on the state's device; with ``kernel="cuda"``
-the force pass is one launch of the hand-written kernel.  Nothing in the
+the force pass is one call of a hand-written kernel (K1, or K2 above 131072
+bodies; ops/cuda_step.cuda_forces).  Nothing in the
 loop reads a value back to the host, so on a GPU the launches queue without
 waiting for the device.
 """
@@ -27,7 +28,8 @@ def step(cfg: SimConfig, state: State) -> State:
         xf, yf = forces_coincident_dispatch(
             state.x, state.y, state.mass,
             lambda biased: cuda_forces(cfg, state.x, state.y, state.mass,
-                                       state.radius, biased=biased))
+                                       state.radius, biased=biased,
+                                       accum=cfg.accum))
     else:
         xf, yf = compute_forces_dense(cfg, state.x, state.y, state.mass,
                                       state.radius)

@@ -1,12 +1,14 @@
 """Build the package's CUDA kernels at first use and load them with ctypes.
 
-``nvcc`` compiles ``csrc/forces.cu`` (a plain C interface, no PyTorch
-headers, so the build takes seconds) into
-``_build/libnbody_kernels_<hash>.so`` inside the package, where the hash
-covers the source and the flags: a changed source builds a new library and
-an unchanged one is loaded as built.  Nothing here runs at import time, so
-the package imports on machines without ``nvcc`` or a GPU; ``load()`` raises
-there, with nvcc's own error output when the compile fails.
+``nvcc`` compiles each source of ``csrc/`` (``forces.cu``: K1,
+``forces_streamed.cu``: K2; both include ``pairs.cuh``) to an object, all
+of them at once, and links the objects into
+``_build/libnbody_kernels_<hash>.so`` inside the package.  The sources have
+a plain C interface and no PyTorch headers, so the build takes seconds.  The
+hash covers the sources, the header and the flags: a changed source builds
+a new library and an unchanged one is loaded as built.  Nothing here runs at
+import time, so the package imports on machines without ``nvcc`` or a GPU;
+``load()`` raises there, with nvcc's own error output when a compile fails.
 """
 
 from __future__ import annotations
@@ -21,14 +23,38 @@ import tempfile
 import time
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCES = (os.path.join(_PKG_DIR, "csrc", "forces.cu"),)
+_CSRC = os.path.join(_PKG_DIR, "csrc")
+SOURCES = tuple(os.path.join(_CSRC, f)
+                for f in ("forces.cu", "forces_streamed.cu"))
+HEADERS = (os.path.join(_CSRC, "pairs.cuh"),)
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
-# No --use_fast_math (see the note in csrc/forces.cu).  -Xptxas -v makes
+# No --use_fast_math (see the note in csrc/pairs.cuh).  -Xptxas -v makes
 # ptxas report registers, shared memory and spills per kernel; the report is
 # kept in ``Library.build_log``.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_VP, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+# name stem -> argtypes; each stem exists for f32, f64 and bf16.
+_SIGNATURES = {
+    # 4 row pointers, m, 4 column pointers, k, row_g0, col_g0, gravity,
+    # biased flag pointer, biased default, compensated, 2 outputs, stream.
+    "nbody_block_forces": ([_VP] * 4 + [_I64] + [_VP] * 4
+                           + [_I64, _I64, _I64, ctypes.c_double, _VP, _INT,
+                              _INT, _VP, _VP, _VP]),
+    # 3 row pointers (x, y, r), m, 4 column pointers, k, band, row_g0,
+    # col_g0, biased flag pointer, biased default, compensated, workspace,
+    # stream.
+    "nbody_band_partials": ([_VP] * 3 + [_I64] + [_VP] * 4
+                            + [_I64, _I64, _I64, _I64, _VP, _INT, _INT, _VP,
+                               _VP]),
+    # workspace, bands, m, row masses, gravity, compensated, 2 outputs,
+    # stream.
+    "nbody_band_fold": [_VP, _I64, _I64, _VP, ctypes.c_double, _INT, _VP,
+                        _VP, _VP],
+}
+DTYPE_SUFFIXES = ("f32", "f64", "bf16")
 
 
 class Library:
@@ -39,16 +65,16 @@ class Library:
         self.build_log = build_log
         self.build_seconds = build_seconds
         self.cdll = ctypes.CDLL(path)
-        vp, i64 = ctypes.c_void_p, ctypes.c_int64
-        for name in ("nbody_block_forces_f32", "nbody_block_forces_f64"):
-            fn = getattr(self.cdll, name)
-            # 4 row pointers, m, 4 column pointers, k, row_g0, col_g0,
-            # gravity, biased flag pointer, biased default, 2 outputs, stream.
-            fn.argtypes = ([vp] * 4 + [i64] + [vp] * 4 + [i64, i64, i64,
-                           ctypes.c_double, vp, ctypes.c_int, vp, vp, vp])
-            fn.restype = ctypes.c_int
+        for stem, argtypes in _SIGNATURES.items():
+            for suffix in DTYPE_SUFFIXES:
+                fn = getattr(self.cdll, "%s_%s" % (stem, suffix))
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
         self.cdll.nbody_cuda_error_string.argtypes = [ctypes.c_int]
         self.cdll.nbody_cuda_error_string.restype = ctypes.c_char_p
+
+    def fn(self, stem: str, suffix: str):
+        return getattr(self.cdll, "%s_%s" % (stem, suffix))
 
     def error_string(self, err: int) -> str:
         return self.cdll.nbody_cuda_error_string(err).decode()
@@ -69,10 +95,26 @@ def _nvcc() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
+        h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
             h.update(f.read())
     return h.hexdigest()[:16]
+
+
+def _run_all(cmds):
+    """Start every command at once; wait for all.  Returns the failures as
+    (cmd, returncode, output) and the combined output."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    failed, log = [], []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        log.append(out)
+        if proc.returncode != 0:
+            failed.append((cmd, proc.returncode, out))
+    return failed, "".join(log)
 
 
 @functools.cache
@@ -82,19 +124,29 @@ def load() -> Library:
     target = os.path.join(BUILD_DIR, "libnbody_kernels_%s.so" % _source_hash())
     if os.path.exists(target):
         return Library(target, "", 0.0)
+    nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    # Build into a temporary name and rename: concurrent first uses never
-    # load a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *SOURCES]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError("nvcc failed (exit %d): %s\n%s%s"
-                           % (proc.returncode, " ".join(cmd), proc.stdout,
-                              proc.stderr))
-    os.replace(tmp, target)
-    return Library(target, proc.stdout + proc.stderr, seconds)
+    # Build in a private directory and rename the library into place:
+    # concurrent first uses never load a half-written library.
+    work = tempfile.mkdtemp(dir=BUILD_DIR)
+    try:
+        objs = [os.path.join(work, os.path.basename(src) + ".o")
+                for src in SOURCES]
+        t0 = time.perf_counter()
+        failed, log = _run_all(
+            [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+             for obj, src in zip(objs, SOURCES)])
+        if not failed:
+            lib = os.path.join(work, "lib.so")
+            failed, link_log = _run_all(
+                [[nvcc, "-shared", "-o", lib, *objs]])
+            log += link_log
+        seconds = time.perf_counter() - t0
+        if failed:
+            cmd, rc, out = failed[0]
+            raise RuntimeError("nvcc failed (exit %d): %s\n%s"
+                               % (rc, " ".join(cmd), out))
+        os.replace(lib, target)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return Library(target, log, seconds)

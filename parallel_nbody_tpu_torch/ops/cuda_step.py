@@ -1,9 +1,8 @@
-"""The hand-written CUDA force kernel: wrapper, plain version and dispatch.
+"""The hand-written CUDA force kernels: wrappers, plain versions and dispatch.
 
-Counterpart of ``parallel_nbody_tpu/ops/pallas_step.py``.  ``block_forces``
-computes the one-sided force of column block J on row block I, exactly what
-the Pallas ``_force_kernel`` computes (see csrc/forces.cu for the kernel and
-its design):
+Counterpart of ``parallel_nbody_tpu/ops/pallas_step.py``.  Both kernels
+compute the one-sided force of column block J on row block I (see csrc/ for
+the kernels and their design):
 
     acc_i = sum_j m_j * rsqrt(forced^2 * dsqr + eps) * (dx, dy)
     F_i   = acc_i * (G * m_i),   forced = max(dsqr, (r_i + r_j)^2)
@@ -14,9 +13,27 @@ plus, when ``biased``, the reference's atan2(0, 0) kick
 and is only correct when no two distinct massive bodies coincide —
 ``forces_coincident_dispatch`` chooses it from ``any_coincident``.
 
-On CUDA tensors ``block_forces`` launches the kernel or raises; on CPU
-tensors it runs ``block_forces_reference``, the plain PyTorch version of the
-same arithmetic.
+- ``block_forces`` (K1, csrc/forces.cu; Pallas ``_force_kernel``) sums each
+  row over all columns in 128-wide tiles.
+- ``block_forces_streamed`` (K2, csrc/forces_streamed.cu; Pallas
+  ``_force_kernel_streamed``) sums each row band by band (``band`` columns,
+  65536 by default) and folds the band partials in band order.
+
+``accum="compensated"`` Kahan-folds each tile's partial into the row sum and,
+in K2, each band partial into the total; a band's own compensation term is
+dropped at band end (``pallas_step._acc_finish``).  bfloat16 is a storage
+format: inputs upcast to float32, every sum stays float32, and the result is
+rounded to bfloat16 once (``pallas_step._compute_dtype``).
+
+``cuda_forces`` and ``block_forces_auto`` dispatch as ``pallas_forces`` and
+``pallas_block_forces_auto`` do: K2 above ``STREAMED_ABOVE`` bodies.  On the
+H100 that threshold is no memory limit (K1 streams its column tiles from
+device memory at any N); it is kept so that the port sums in the same
+structure as the JAX package at every N.
+
+On CUDA tensors each wrapper launches its kernel or raises; on CPU tensors
+it runs its plain PyTorch version (``block_forces_reference``,
+``block_forces_streamed_reference``).
 """
 
 from __future__ import annotations
@@ -26,6 +43,18 @@ import torch
 from ..config import SimConfig
 from . import _build
 
+# pallas_step._VMEM_RESIDENT_LIMIT and pallas_block_forces_streamed's band.
+STREAMED_ABOVE = 1 << 17
+STREAM_BAND = 65536
+# The kernels' j-tile (kBlock in csrc/pairs.cuh).
+TILE = 128
+ACCUMS = ("plain", "compensated")
+
+# Storage dtype -> compute dtype.
+_COMPUTE = {torch.bfloat16: torch.float32, torch.float32: torch.float32,
+            torch.float64: torch.float64}
+_SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32",
+           torch.float64: "f64"}
 # De-NaN floor inside the rsqrt (pallas_step.py::_EPS / _EPS64): it keeps
 # self-pairs and coincident pairs at 0 * finite instead of 0 * inf.  Real
 # pairs have forced^2 * dsqr >= 16 * dsqr, far above it.
@@ -33,9 +62,11 @@ _EPS = {torch.float32: 1e-36, torch.float64: 1e-200}
 # Denominator floor of the kick (forces.py::_DENOM_FLOOR): only zero-radius
 # padding pairs have forced < 4.
 _DENOM_FLOOR = 1e-30
-# Elements per (rows, K) intermediate of the plain version: 16M elements is
+# Elements per (rows, K) intermediate of the plain versions: 16M elements is
 # 64 MiB in fp32, so N=65536 fits on the card 256 rows at a time.
 _CHUNK_ELEMS = 1 << 24
+# The band kernel's grid puts the bands on its y axis.
+_MAX_BANDS = 65535
 
 
 def _flag_factor(biased, dtype):
@@ -46,20 +77,38 @@ def _flag_factor(biased, dtype):
     return 1.0 if biased else None
 
 
-def block_forces_reference(cfg: SimConfig, xi, yi, mi, ri, xj, yj, mj, rj,
-                           *, row_g0: int = 0, col_g0: int = 0, biased):
-    """Plain PyTorch version of the kernel, chunked over rows so the (rows,
-    K) intermediates stay bounded on any device.  ``biased`` is a bool or a
-    0-d bool tensor (read without a host sync)."""
-    dtype = xi.dtype
+def band_width(k: int, band: int, tile: int = TILE) -> int:
+    """The band K2 really uses for ``k`` columns: at most ``k`` rounded up
+    to a tile, at least one tile, and a whole number of tiles
+    (pallas_step.py:434-435)."""
+    band = max(tile, min(band, -(-k // tile) * tile))
+    return band - band % tile
+
+
+def _kahan_add(acc, comp, val):
+    """pallas_step._kahan_add: fold ``val`` into ``acc``, carrying the
+    rounding error in ``comp``."""
+    y = val - comp
+    t = acc + y
+    return t, (t - acc) - y
+
+
+def _tile_partials(xi, yi, ri, xj, yj, mj, rj, *, row_g0, col_g0, flag,
+                   tile):
+    """Per-tile partial sums of each row's raw acceleration (before
+    G * m_i): two (M, ceil(K / tile)) tensors in the inputs' dtype.  Rows
+    are chunked so the (rows, K) intermediates stay bounded on any
+    device."""
+    dtype, dev = xi.dtype, xi.device
     eps = _EPS[dtype]
     m, k = xi.shape[0], xj.shape[0]
-    flag = _flag_factor(biased, dtype)
-    gj = col_g0 + torch.arange(k, device=xj.device)
-    zero = torch.zeros((), dtype=dtype, device=xi.device)
+    nt = -(-k // tile)
+    gj = col_g0 + torch.arange(k, device=dev)
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    px = torch.zeros((m, nt), dtype=dtype, device=dev)
+    py = torch.zeros((m, nt), dtype=dtype, device=dev)
     chunk = max(1, _CHUNK_ELEMS // max(k, 1))
-    xs, ys = [], []
-    for r0 in range(0, m, chunk):
+    for r0 in range(0, m if k else 0, chunk):
         rows = slice(r0, min(m, r0 + chunk))
         dx = xj[None, :] - xi[rows, None]
         dy = yj[None, :] - yi[rows, None]
@@ -67,86 +116,170 @@ def block_forces_reference(cfg: SimConfig, xi, yi, mi, ri, xj, yj, mj, rj,
         mind = ri[rows, None] + rj[None, :]
         forced = torch.maximum(dsqr, mind * mind)
         s = mj[None, :] * torch.rsqrt(forced * forced * dsqr + eps)
-        ax = torch.sum(s * dx, dim=1)
-        ay = torch.sum(s * dy, dim=1)
+        fx = s * dx
         if flag is not None:
-            gi = row_g0 + torch.arange(r0, rows.stop, device=xi.device)
+            gi = row_g0 + torch.arange(r0, rows.stop, device=dev)
             sgn = torch.sign(gj[None, :] - gi[:, None]).to(dtype)
             kick = torch.where(dsqr == 0, mj[None, :] * sgn
                                / torch.clamp_min(forced, _DENOM_FLOOR), zero)
-            ax = ax + torch.sum(kick, dim=1) * flag
-        gmi = mi[rows] * cfg.gravity
-        xs.append(ax * gmi)
-        ys.append(ay * gmi)
-    if not xs:
-        return torch.empty_like(xi), torch.empty_like(yi)
-    return torch.cat(xs), torch.cat(ys)
+            fx = fx + kick * flag
+        fy = s * dy
+        pad = (0, nt * tile - k)
+        px[rows] = torch.nn.functional.pad(fx, pad).view(-1, nt, tile).sum(2)
+        py[rows] = torch.nn.functional.pad(fy, pad).view(-1, nt, tile).sum(2)
+    return px, py
 
 
-def _check_inputs(rows, cols, biased):
-    """Raise on what the kernel does not take: mixed devices or dtypes, a
-    dtype other than fp32/fp64, non-1-D or non-contiguous tensors, ragged
-    blocks, or a flag that is not a 0-d bool tensor on the same device."""
+def _fold(px, py, accum):
+    """Fold the columns of (M, T) partials in order, plainly or with Kahan;
+    the compensation term is dropped at the end (pallas_step._acc_finish).
+    Returns two (M,) sums."""
+    ax = torch.zeros(px.shape[0], dtype=px.dtype, device=px.device)
+    ay = torch.zeros_like(ax)
+    cx, cy = torch.zeros_like(ax), torch.zeros_like(ax)
+    for vx, vy in zip(px.t().contiguous(), py.t().contiguous()):
+        if accum == "compensated":
+            ax, cx = _kahan_add(ax, cx, vx)
+            ay, cy = _kahan_add(ay, cy, vy)
+        else:
+            ax = ax + vx
+            ay = ay + vy
+    return ax, ay
+
+
+def _upcast(tensors):
+    return [t.to(_COMPUTE[t.dtype]) for t in tensors]
+
+
+def block_forces_reference(cfg: SimConfig, xi, yi, mi, ri, xj, yj, mj, rj,
+                           *, row_g0: int = 0, col_g0: int = 0, biased,
+                           accum: str = "plain", tile: int = TILE):
+    """Plain PyTorch version of K1: each ``tile``-wide slice of a row is
+    summed, and the slices are folded in order (with Kahan under
+    ``compensated``).  ``biased`` is a bool or a 0-d bool tensor (read
+    without a host sync)."""
+    store = xi.dtype
+    xi, yi, mi, ri, xj, yj, mj, rj = _upcast((xi, yi, mi, ri, xj, yj, mj,
+                                              rj))
+    px, py = _tile_partials(xi, yi, ri, xj, yj, mj, rj, row_g0=row_g0,
+                            col_g0=col_g0,
+                            flag=_flag_factor(biased, xi.dtype), tile=tile)
+    ax, ay = _fold(px, py, accum)
+    gmi = mi * cfg.gravity
+    return (ax * gmi).to(store), (ay * gmi).to(store)
+
+
+def block_forces_streamed_reference(cfg: SimConfig, xi, yi, mi, ri, xj, yj,
+                                    mj, rj, *, row_g0: int = 0,
+                                    col_g0: int = 0,
+                                    band: int = STREAM_BAND, biased,
+                                    accum: str = "plain", tile: int = TILE):
+    """Plain PyTorch version of K2: per band, K1's tile partials folded into
+    a band partial (the compensation term dropped at band end); then the
+    band partials folded in band order (with Kahan under ``compensated``);
+    then ``G * m_i``."""
+    store = xi.dtype
+    xi, yi, mi, ri, xj, yj, mj, rj = _upcast((xi, yi, mi, ri, xj, yj, mj,
+                                              rj))
+    flag = _flag_factor(biased, xi.dtype)
+    k = xj.shape[0]
+    band = band_width(k, band, tile)
+    bx, by = [], []
+    for b0 in range(0, k, band):
+        cols = slice(b0, min(k, b0 + band))
+        px, py = _tile_partials(xi, yi, ri, xj[cols], yj[cols], mj[cols],
+                                rj[cols], row_g0=row_g0, col_g0=col_g0 + b0,
+                                flag=flag, tile=tile)
+        fx, fy = _fold(px, py, accum)
+        bx.append(fx)
+        by.append(fy)
+    if bx:
+        ax, ay = _fold(torch.stack(bx, 1), torch.stack(by, 1), accum)
+    else:
+        ax = ay = torch.zeros_like(xi)
+    gmi = mi * cfg.gravity
+    return (ax * gmi).to(store), (ay * gmi).to(store)
+
+
+def _check_inputs(name, rows, cols, biased, accum):
+    """Raise on what the kernels do not take: mixed devices or dtypes, a
+    dtype other than bf16/fp32/fp64, non-1-D or non-contiguous tensors,
+    ragged blocks, a flag that is not a 0-d bool tensor on the same device,
+    or an unknown accumulation."""
     ref = rows[0]
     for t in rows + cols:
         if t.device != ref.device:
-            raise ValueError("block_forces: tensors on %s and %s"
-                             % (ref.device, t.device))
+            raise ValueError("%s: tensors on %s and %s"
+                             % (name, ref.device, t.device))
         if t.dtype != ref.dtype:
-            raise TypeError("block_forces: dtypes %s and %s"
-                            % (ref.dtype, t.dtype))
+            raise TypeError("%s: dtypes %s and %s"
+                            % (name, ref.dtype, t.dtype))
         if t.dim() != 1 or not t.is_contiguous():
-            raise ValueError("block_forces: expected contiguous 1-D tensors, "
-                             "got shape %s" % (tuple(t.shape),))
-    if ref.dtype not in _EPS:
-        raise TypeError("block_forces: dtype %s (expected float32 or float64)"
-                        % ref.dtype)
+            raise ValueError("%s: expected contiguous 1-D tensors, got "
+                             "shape %s" % (name, tuple(t.shape)))
+    if ref.dtype not in _COMPUTE:
+        raise TypeError("%s: dtype %s (expected bfloat16, float32 or "
+                        "float64)" % (name, ref.dtype))
     if {t.shape[0] for t in rows} != {rows[0].shape[0]} or \
             {t.shape[0] for t in cols} != {cols[0].shape[0]}:
-        raise ValueError("block_forces: ragged row or column block")
+        raise ValueError("%s: ragged row or column block" % name)
     if isinstance(biased, torch.Tensor) and (
             biased.dtype != torch.bool or biased.dim() != 0
             or biased.device != ref.device):
-        raise ValueError("block_forces: biased flag must be a 0-d bool "
-                         "tensor on %s" % ref.device)
+        raise ValueError("%s: biased flag must be a 0-d bool tensor on %s"
+                         % (name, ref.device))
+    if accum not in ACCUMS:
+        raise ValueError("%s: unsupported accum %r (expected plain or "
+                         "compensated)" % (name, accum))
+    if ref.device.type not in ("cpu", "cuda"):
+        raise ValueError("%s: unsupported device %s" % (name, ref.device))
+
+
+def _flag_args(biased):
+    """(pointer, default) for the kernels' biased flag."""
+    if isinstance(biased, torch.Tensor):
+        return biased.data_ptr(), 0
+    return None, int(bool(biased))
+
+
+def _launch(name, stem, dtype, device, *args):
+    """Call the C launcher ``stem`` for storage ``dtype`` on the device's
+    current stream; raise if the launch was refused."""
+    lib = _build.load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.fn(stem, _SUFFIX[dtype])(*args, stream)
+    if err != 0:
+        raise RuntimeError("%s: kernel launch failed: %s (%d)"
+                           % (name, lib.error_string(err), err))
 
 
 def block_forces(cfg: SimConfig, xi, yi, mi, ri, xj, yj, mj, rj, *,
-                 row_g0: int = 0, col_g0: int = 0, biased):
-    """Force of every body of block J on every body of block I.
+                 row_g0: int = 0, col_g0: int = 0, biased,
+                 accum: str = "plain"):
+    """K1: force of every body of block J on every body of block I.
 
     ``biased`` is a bool, or a 0-d bool tensor that the kernel reads from
-    device memory (no host sync).  Returns (xf, yf) of shape (M,).  Each
-    launch of the CUDA kernel adds one to ``block_forces.launches``.
+    device memory (no host sync).  Returns (xf, yf) of shape (M,) in the
+    inputs' dtype.  Each launch of the CUDA kernel adds one to
+    ``block_forces.launches``.
     """
     rows, cols = (xi, yi, mi, ri), (xj, yj, mj, rj)
-    _check_inputs(rows, cols, biased)
+    _check_inputs("block_forces", rows, cols, biased, accum)
     if xi.device.type == "cpu":
         return block_forces_reference(cfg, *rows, *cols, row_g0=row_g0,
-                                      col_g0=col_g0, biased=biased)
-    if xi.device.type != "cuda":
-        raise ValueError("block_forces: unsupported device %s" % xi.device)
+                                      col_g0=col_g0, biased=biased,
+                                      accum=accum)
     m, k = xi.shape[0], xj.shape[0]
     xf = torch.empty_like(xi)
     yf = torch.empty_like(xi)
     if m == 0:
         return xf, yf
-    lib = _build.load()
-    fn = (lib.cdll.nbody_block_forces_f32 if xi.dtype == torch.float32
-          else lib.cdll.nbody_block_forces_f64)
-    if isinstance(biased, torch.Tensor):
-        flag_ptr, flag_default = biased.data_ptr(), 0
-    else:
-        flag_ptr, flag_default = None, int(bool(biased))
-    with torch.cuda.device(xi.device):
-        stream = torch.cuda.current_stream(xi.device).cuda_stream
-        err = fn(*(t.data_ptr() for t in rows), m,
-                 *(t.data_ptr() for t in cols), k, int(row_g0), int(col_g0),
-                 float(cfg.gravity), flag_ptr, flag_default,
-                 xf.data_ptr(), yf.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError("block_forces: kernel launch failed: %s (%d)"
-                           % (lib.error_string(err), err))
+    _launch("block_forces", "nbody_block_forces", xi.dtype, xi.device,
+            *(t.data_ptr() for t in rows), m,
+            *(t.data_ptr() for t in cols), k, int(row_g0), int(col_g0),
+            float(cfg.gravity), *_flag_args(biased),
+            int(accum == "compensated"), xf.data_ptr(), yf.data_ptr())
     block_forces.launches += 1
     return xf, yf
 
@@ -154,10 +287,77 @@ def block_forces(cfg: SimConfig, xi, yi, mi, ri, xj, yj, mj, rj, *,
 block_forces.launches = 0
 
 
-def cuda_forces(cfg: SimConfig, x, y, mass, radius, *, biased):
-    """Total pairwise forces (square case) through ``block_forces``."""
-    return block_forces(cfg, x, y, mass, radius, x, y, mass, radius,
-                        biased=biased)
+def band_fold(cfg: SimConfig, ws, mi, *, accum: str = "plain"):
+    """K2's second launch on its own: fold the (bands, 2, M) band partials
+    ``ws`` in band order and apply ``G * m_i``.  Returns (xf, yf) in
+    ``mi``'s dtype.  (``block_forces_streamed`` calls it; it has no count of
+    its own.)"""
+    nb, _, m = ws.shape
+    xf = torch.empty_like(mi)
+    yf = torch.empty_like(mi)
+    _launch("band_fold", "nbody_band_fold", mi.dtype, mi.device,
+            ws.data_ptr(), nb, m, mi.data_ptr(),
+            float(cfg.gravity), int(accum == "compensated"), xf.data_ptr(),
+            yf.data_ptr())
+    return xf, yf
+
+
+def block_forces_streamed(cfg: SimConfig, xi, yi, mi, ri, xj, yj, mj, rj, *,
+                          row_g0: int = 0, col_g0: int = 0,
+                          band: int = STREAM_BAND, biased,
+                          accum: str = "plain"):
+    """K2: ``block_forces`` summed band by band (``band`` columns, rounded
+    as ``band_width`` says), the band partials folded in band order.
+
+    Two launches (band partials into a (bands, 2, M) workspace, then
+    ``band_fold``) count as one in ``block_forces_streamed.launches``.
+    """
+    rows, cols = (xi, yi, mi, ri), (xj, yj, mj, rj)
+    _check_inputs("block_forces_streamed", rows, cols, biased, accum)
+    if xi.device.type == "cpu":
+        return block_forces_streamed_reference(
+            cfg, *rows, *cols, row_g0=row_g0, col_g0=col_g0, band=band,
+            biased=biased, accum=accum)
+    m, k = xi.shape[0], xj.shape[0]
+    if m == 0:
+        return torch.empty_like(xi), torch.empty_like(xi)
+    band = band_width(k, int(band))
+    nb = max(1, -(-k // band))
+    if nb > _MAX_BANDS:
+        raise ValueError("block_forces_streamed: %d bands of %d exceed the "
+                         "grid's %d" % (nb, band, _MAX_BANDS))
+    ws = torch.empty((nb, 2, m), dtype=_COMPUTE[xi.dtype], device=xi.device)
+    _launch("block_forces_streamed", "nbody_band_partials", xi.dtype,
+            xi.device, xi.data_ptr(), yi.data_ptr(), ri.data_ptr(), m,
+            *(t.data_ptr() for t in cols), k, band, int(row_g0), int(col_g0),
+            *_flag_args(biased), int(accum == "compensated"), ws.data_ptr())
+    out = band_fold(cfg, ws, mi, accum=accum)
+    block_forces_streamed.launches += 1
+    return out
+
+
+block_forces_streamed.launches = 0
+
+
+def block_forces_auto(cfg: SimConfig, xi, yi, mi, ri, xj, yj, mj, rj, *,
+                      row_g0: int = 0, col_g0: int = 0, biased,
+                      accum: str = "plain"):
+    """K1 or K2 by block size, as ``pallas_block_forces_auto`` chooses: K2
+    when either block holds more than ``STREAMED_ABOVE`` bodies."""
+    fn = (block_forces_streamed
+          if max(xi.shape[0], xj.shape[0]) > STREAMED_ABOVE else block_forces)
+    return fn(cfg, xi, yi, mi, ri, xj, yj, mj, rj, row_g0=row_g0,
+              col_g0=col_g0, biased=biased, accum=accum)
+
+
+def cuda_forces(cfg: SimConfig, x, y, mass, radius, *, biased,
+                accum: str = "plain"):
+    """Total pairwise forces (square case), as ``pallas_forces`` computes
+    them: K2 with band ``STREAM_BAND`` above ``STREAMED_ABOVE`` bodies, K1
+    otherwise."""
+    fn = block_forces_streamed if x.shape[0] > STREAMED_ABOVE else block_forces
+    return fn(cfg, x, y, mass, radius, x, y, mass, radius, biased=biased,
+              accum=accum)
 
 
 def any_coincident(x, y, mass) -> torch.Tensor:

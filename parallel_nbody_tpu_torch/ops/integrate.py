@@ -41,6 +41,12 @@ def compute_positions(cfg: SimConfig, x, y, xv, yv, mass=None):
     Pass ``mass`` on padded states (pad_state): zero-mass padding rows are
     frozen in place, so the wall clamp never drags the far-away padding
     into the arena.  For unpadded states the select is a no-op.
+
+    The high wall clamps to ``dim - 1`` rounded to the state's dtype, as the
+    JAX package does.  In bfloat16 that is 1024 for 1023 and 768 for 767,
+    so a bouncing body sits on ``dim`` itself: a defect of the reference
+    that the port keeps on purpose, since the JAX package is what it is
+    held against (tests/test_torch_ops.py::test_bf16_high_wall_clamp).
     """
     zero = torch.zeros((), dtype=x.dtype, device=x.device)
     xn = x + xv * cfg.dt

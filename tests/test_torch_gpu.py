@@ -1,12 +1,15 @@
-"""Tests of the CUDA kernel on the card (marker ``gpu``; they skip without
+"""Tests of the CUDA kernels on the card (marker ``gpu``; they skip without
 one).  This file imports no JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu \
         tests/test_torch_gpu.py
 
-Tolerances: the kernel against its plain version on the same card is held
-to 1e-5 * max|F| in fp32 (the kernel sums each row sequentially; at these
-sizes the difference is below 1e-6 * max|F|) and 1e-12 * max|F| in fp64.
+Tolerances: each kernel (K1 ``block_forces``, K2 ``block_forces_streamed``)
+against its plain version on the same card is held to 1e-5 * max|F| in fp32
+(the kernels sum each row sequentially; at these sizes the difference is
+below 1e-6 * max|F|) and 1e-12 * max|F| in fp64.  The magnitude-spread case
+keeps the bounds of tests/test_accum.py; bf16 launches are bit-equal to the
+fp32 launch on the upcast inputs rounded once.
 """
 
 import numpy as np
@@ -19,7 +22,7 @@ from parallel_nbody_tpu_torch.models.engine import run
 from parallel_nbody_tpu_torch.ops import cuda_step
 from parallel_nbody_tpu_torch.state import init_state
 from parallel_nbody_tpu_torch.utils import ppm
-from torch_cases import BLOCK_CASES, KICK, blocks
+from torch_cases import BLOCK_CASES, KICK, blocks, glibc_like
 
 TOL = {"float32": 1e-5, "float64": 1e-12}
 
@@ -126,3 +129,145 @@ def test_cli_on_card_goes_through_kernel(dev, tmp_path, capsys,
     for row, f in zip(got, ("x", "y", "xf", "yf", "xv", "yv")):
         np.testing.assert_allclose(row, getattr(want, f).numpy(), rtol=0,
                                    atol=2e-3, err_msg=f)
+
+
+# ---------------------------------------------------------------------------
+# K2, compensated accumulation and bf16 storage
+# ---------------------------------------------------------------------------
+
+def _k2_case(case):
+    """(rows, cols, row_g0, col_g0, band) for K2 on the card."""
+    if case == "bands_ragged":
+        b = glibc_like(4097, 21, ((5, 4000), (1024, 1025), (3000, 3001)))
+        return b, b, 0, 0, 1024
+    if case == "offsets_cross_band":
+        # Rows are bodies 1000..2999, columns 500..4095 of one set: the band
+        # edges at column 1024 and 2048 (bodies 1524, 2548) cut through the
+        # rows, and a coincident pair straddles the first.
+        full = glibc_like(4096, 22, ((1500, 1600), (2000, 3500)))
+        return ([a[1000:3000] for a in full], [a[500:] for a in full],
+                1000, 500, 1024)
+    rows, cols, g0, c0 = blocks(case)
+    return rows, cols, g0, c0, 128
+
+
+K2_CASES = ("bands_ragged", "offsets_cross_band") + BLOCK_CASES
+
+
+@pytest.mark.parametrize("accum", ["plain", "compensated"])
+@pytest.mark.parametrize("biased", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("case", K2_CASES)
+def test_streamed_kernel_matches_reference(case, dtype, biased, accum, dev):
+    rows, cols, g0, c0, band = _k2_case(case)
+    rows, cols = _on(rows, dtype, dev), _on(cols, dtype, dev)
+    cfg = SimConfig(force_mode="fast", dtype=dtype, kernel="cuda")
+    before = cuda_step.block_forces_streamed.launches
+    got = cuda_step.block_forces_streamed(cfg, *rows, *cols, row_g0=g0,
+                                          col_g0=c0, band=band,
+                                          biased=biased, accum=accum)
+    torch.cuda.synchronize()
+    assert cuda_step.block_forces_streamed.launches == before + 1
+    want = cuda_step.block_forces_streamed_reference(
+        cfg, *rows, *cols, row_g0=g0, col_g0=c0, band=band, biased=biased,
+        accum=accum)
+    scale = max(float(w.abs().max()) for w in want)
+    for g, w in zip(got, want):
+        assert g.device == dev and g.dtype == w.dtype
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=0,
+                                   atol=TOL[dtype] * scale)
+
+
+@pytest.mark.parametrize("biased", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_compensated_kernel_matches_reference(dtype, biased, dev):
+    rows, cols, g0, c0 = blocks("rect256x384")
+    rows, cols = _on(rows, dtype, dev), _on(cols, dtype, dev)
+    cfg = SimConfig(force_mode="fast", dtype=dtype, kernel="cuda")
+    got = cuda_step.block_forces(cfg, *rows, *cols, row_g0=g0, col_g0=c0,
+                                 biased=biased, accum="compensated")
+    want = cuda_step.block_forces_reference(cfg, *rows, *cols, row_g0=g0,
+                                            col_g0=c0, biased=biased,
+                                            accum="compensated")
+    scale = max(float(w.abs().max()) for w in want)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=0,
+                                   atol=TOL[dtype] * scale)
+
+
+@pytest.mark.parametrize("kernel", ["block_forces", "block_forces_streamed"])
+def test_compensated_magnitude_spread_on_card(kernel, dev):
+    """tests/test_accum.py:24-84 on the card: the Kahan folds survive the
+    compiler."""
+    n_cols = 4096
+    mj = np.full(n_cols, 0.9 / 128)
+    mj[0] = 2.0 ** 24
+    args = _on([[0.0], [0.0], [1.0], [0.1], np.ones(n_cols),
+                np.zeros(n_cols), mj, np.full(n_cols, 0.1)], "float32", dev)
+    exact = 1.1 * (2.0 ** 24 + (n_cols - 1) * (0.9 / 128))
+    fn = getattr(cuda_step, kernel)
+    kw = dict(band=128) if kernel == "block_forces_streamed" else {}
+    cfg = SimConfig(force_mode="fast", dtype="float32", kernel="cuda")
+
+    def err(accum):
+        fx, _ = fn(cfg, *args, row_g0=0, col_g0=8192, biased=False,
+                   accum=accum, **kw)
+        return abs(float(fx[0]) - exact) / exact
+
+    assert err("plain") > 5e-7
+    assert err("compensated") < 3e-7
+
+
+@pytest.mark.parametrize("accum", ["plain", "compensated"])
+@pytest.mark.parametrize("biased", [True, False])
+@pytest.mark.parametrize("kernel", ["block_forces", "block_forces_streamed"])
+def test_bf16_kernel_is_fp32_kernel_rounded_once(kernel, biased, accum,
+                                                 dev):
+    b = [t.to(torch.bfloat16) for t in _on(glibc_like(4097, 23),
+                                           "float32", dev)]
+    b32 = [t.float() for t in b]
+    fn = getattr(cuda_step, kernel)
+    kw = dict(band=1024) if kernel == "block_forces_streamed" else {}
+    cfg = SimConfig(force_mode="fast", kernel="cuda")
+    got = fn(cfg.replace(dtype="bfloat16"), *b, *b, biased=biased,
+             accum=accum, **kw)
+    want = fn(cfg.replace(dtype="float32"), *b32, *b32, biased=biased,
+              accum=accum, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        assert torch.equal(g, w.to(torch.bfloat16))
+
+
+def test_cuda_forces_dispatch_on_card(dev, monkeypatch):
+    """With the threshold lowered to 1024, N=1024 launches K1 and N=1100
+    launches K2 (band 65536, one ragged band), each within tolerance of the
+    other's plain version."""
+    monkeypatch.setattr(cuda_step, "STREAMED_ABOVE", 1024)
+    cfg = SimConfig(force_mode="fast", dtype="float64", kernel="cuda")
+    for n, name in ((1024, "block_forces"), (1100, "block_forces_streamed")):
+        b = _on(glibc_like(n, 24), "float64", dev)
+        counts = (cuda_step.block_forces.launches,
+                  cuda_step.block_forces_streamed.launches)
+        got = cuda_step.cuda_forces(cfg, *b, biased=True)
+        after = (cuda_step.block_forces.launches,
+                 cuda_step.block_forces_streamed.launches)
+        assert [a - c for a, c in zip(after, counts)] == (
+            [1, 0] if name == "block_forces" else [0, 1])
+        want = cuda_step.block_forces_reference(cfg, *b, *b, biased=True)
+        scale = max(float(w.abs().max()) for w in want)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                       rtol=0, atol=1e-12 * scale)
+
+
+def test_cli_bf16_compensated_on_card(dev, tmp_path, capsys, monkeypatch):
+    arena = str(tmp_path / "arena.ppm")
+    ppm.create(arena, 1024, 768)
+    monkeypatch.setenv("NBODY_PLATFORM", "cuda")
+    rc = cli.main(["nbody", "512", "0", arena, "5", "--pallas",
+                   "--dtype=bfloat16", "--accum=compensated"])
+    out = capsys.readouterr().out
+    assert rc == 0
+    table = np.array([[float(v) for v in line.split()]
+                      for line in out.splitlines()])
+    assert table.shape == (512, 6) and np.isfinite(table).all()

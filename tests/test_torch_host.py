@@ -53,6 +53,11 @@ def test_constants_equal():
     (dict(kernel="pallas", force_mode="fast", dtype="float32"), "cuda"),
     (dict(kernel="xla", force_mode="fast", dtype="bfloat16", xdim=640,
           ydim=480), "dense"),
+    (dict(accum="compensated"), "dense"),
+    (dict(kernel="pallas", force_mode="fast", dtype="float32",
+          accum="compensated"), "cuda"),
+    (dict(kernel="pallas", force_mode="fast", dtype="bfloat16",
+          accum="compensated"), "cuda"),
 ])
 def test_config_from_dict(jkw, kernel):
     jcfg = jconfig.SimConfig(**jkw)
@@ -68,13 +73,32 @@ def test_config_from_dict(jkw, kernel):
     (dict(dtype="float16"), ValueError),
     (dict(dtype="int8"), ValueError),
     (dict(kernel="triton"), ValueError),
-    (dict(accum="compensated"), NotImplementedError),
-    (dict(kernel="cuda", force_mode="fast", dtype="bfloat16"),
-     NotImplementedError),
+    (dict(accum="kahan"), ValueError),
+    (dict(kernel="cuda", force_mode="fast", dtype="float16"), ValueError),
 ])
 def test_config_validation(kw, exc):
     with pytest.raises(exc):
         tconfig.SimConfig(**kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(accum="compensated"),
+    dict(kernel="xla", force_mode="fast", accum="compensated"),
+    dict(kernel="cuda", force_mode="fast", accum="compensated"),
+    dict(kernel="cuda", force_mode="fast", dtype="bfloat16"),
+    dict(kernel="pallas", force_mode="fast", dtype="bfloat16",
+         accum="compensated"),
+])
+def test_config_accepts_what_jax_accepts(kw):
+    """Every accum with every kernel, and bf16 storage with the CUDA
+    kernels: the JAX SimConfig takes the same fields (its names for the
+    kernels)."""
+    jkw = dict(kw, kernel={"cuda": "pallas"}.get(kw.get("kernel"),
+                                                 kw.get("kernel", "xla")))
+    jconfig.SimConfig(**jkw)
+    cfg = tconfig.SimConfig(**kw)
+    assert cfg.accum == kw.get("accum", "plain")
+    assert cfg.dtype == kw.get("dtype", "float64")
 
 
 def test_state_from_numpy_round_trip():

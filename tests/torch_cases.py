@@ -21,6 +21,17 @@ def glibc_like(n, seed, coincident=((10, 20),)):
     return [x, y, r**3, r]
 
 
+def bf16_ulps(got, want):
+    """Elementwise distance in bf16 steps between two arrays of bf16
+    values (given as anything numpy reads as float32)."""
+    a = np.asarray(got, np.float32).view(np.int32)
+    b = np.asarray(want, np.float32).view(np.int32)
+    # Map the sign-magnitude bit patterns onto one ordered integer line.
+    a = np.where(a < 0, -(a & 0x7FFFFFFF), a) >> 16
+    b = np.where(b < 0, -(b & 0x7FFFFFFF), b) >> 16
+    return np.abs(a.astype(np.int64) - b.astype(np.int64))
+
+
 def blocks(case):
     """(rows, cols, row_g0, col_g0) of float64 arrays for one of
     BLOCK_CASES."""

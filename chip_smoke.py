@@ -9,9 +9,12 @@ card, drives the CLI's two single-device paths through the kernels (N=65536
 for 100 steps through K1; N=262144 for 20 steps through K2 in fp32,
 fp32 ``--accum=compensated`` and bf16), checks the printed state of a small
 run against the CPU and two full-width steps against the plain version, and
-times the kernels against their plain versions.  Every phase passes or
-raises: any failure exits non-zero before the result lines.  The last two
-lines of stdout are the kernel table and the result, as JSON.
+times the kernels against their plain versions.  It also builds the probes
+P1 (``roofline_probe.cu``) and P2 (``bias_variants_probe.cu``) beside the
+force kernels, holds each of their 12 variants against its plain version,
+and runs both probe drivers at N=65536 through their kernels.  Every phase
+passes or raises: any failure exits non-zero before the result lines.  The
+last two lines of stdout are the kernel table and the result, as JSON.
 
 Tolerances (each comparison uses the plain version's max |F| as the scale):
   - kernel vs plain version, fp32: 2e-5 * max|F| up to N=65536.  The
@@ -38,10 +41,19 @@ Tolerances (each comparison uses the plain version's max |F| as the scale):
     by an fp32 ulp, which moves close pairs' terms.  Positions within 1e-3
     (one printed unit), velocities and forces within 1e-3 of the field's
     max.
+  - probe kernels vs their plain versions, fp32 variants: 2e-5 * max|F| at
+    N=4096 and 4e-5 at N=65536.  The probes' uniform inputs give sums with
+    little cancellation (mem_only's and no_rsqrt's terms mostly share a
+    sign), and a sequential fp32 sum of N same-signed terms errs by about
+    sqrt(N)/6 * 2^-23 of the sum: 5e-6 at N=65536, so 4e-5 leaves 8 sigma.
+  - the tensor-core variants (mxu2_r2, bias1_mxu2) round each term to tf32
+    (2^-11 relative): per row |error_i| <= 2^-10 * |G m_i| * sum_j |term_ij|,
+    the sum of magnitudes from the plain version.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import io
 import json
@@ -64,6 +76,17 @@ BIG_N, BIG_STEPS = 262144, 20  # K2's path: above cuda_step.STREAMED_ABOVE
 BIG_RUNS = (("fp32", []), ("fp32 compensated", ["--accum=compensated"]),
             ("bf16", ["--dtype=bfloat16"]))
 K1, K2 = "block_forces", "block_forces_streamed"
+PROBE_N, PROBE_STEPS = 65536, 20  # both probe drivers' defaults
+TOL_PROBE_MAIN = 4e-5  # fp32 probe variants at PROBE_N (see the docstring)
+TF32_REL = 2.0 ** -10
+# Published peaks of one H100 SXM at 700 W: FP32 outside the tensor cores,
+# and device memory.
+PEAK_FP32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
+# FP32 operations per pair of K1's unbiased loop, which P1 `full` and P2
+# `r2` share (csrc/roofline_probe.cu): dx, dy, dsqr (3), ri + rj, its
+# square, max, forced^2, * dsqr, the floor, mj * inv, two FMAs into the sums
+# (4); the rsqrt runs on the MUFU.
+FLOP_PER_PAIR = 16
 
 
 def _cfg(dtype):
@@ -96,14 +119,21 @@ def phase_device():
 
 
 def phase_build():
+    """Builds the force kernels and the probes side by side (two libraries,
+    every source's nvcc started at once)."""
     from parallel_nbody_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    lib = _build.load()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        libs = {name: pool.submit(_build.load, *args) for name, args in
+                (("kernels", ()), ("probes", ("probes",)))}
+        libs = {name: f.result() for name, f in libs.items()}
     seconds = time.perf_counter() - t0
-    print("build: %.3f s to load (nvcc %.3f s): %s"
-          % (seconds, lib.build_seconds, lib.path))
-    if lib.build_log:
-        print(lib.build_log.strip())
+    for name, lib in libs.items():
+        print("build %s: nvcc %.3f s: %s" % (name, lib.build_seconds,
+                                            lib.path))
+        if lib.build_log:
+            print(lib.build_log.strip())
+    print("build: %.3f s to load both" % seconds)
     return seconds
 
 
@@ -514,6 +544,175 @@ def phase_timing_streamed(dev):
     return times
 
 
+def _probe_inputs(n, seed, dev, square=False):
+    """Eight fp32 vectors uniform in [1, 2) (as tests/torch_cases.py
+    probe_inputs makes them): independent rows and columns, or with
+    ``square`` columns equal to rows and bodies 7 and 300, 10 and 11 at one
+    position."""
+    rng = np.random.RandomState(seed)
+    rows = [rng.uniform(1, 2, n).astype(np.float32) for _ in range(4)]
+    cols = [rng.uniform(1, 2, n).astype(np.float32) for _ in range(4)]
+    if square:
+        for a, b in ((7, 300), (10, 11)):
+            rows[0][b], rows[1][b] = rows[0][a], rows[1][a]
+        cols = [a.copy() for a in rows]
+    return [torch.from_numpy(a).to(dev) for a in rows + cols]
+
+
+def _compare_probe(module, variant, args, label, tol, **tiles):
+    """A probe kernel vs its plain version on the card.  Returns (max |error|,
+    ms of the plain version's call)."""
+    got = module.probe_forces(variant, *args, **tiles)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    *want, xmag, ymag = module.probe_forces_reference(
+        variant, *args, magnitudes=True, **tiles)
+    end.record()
+    torch.cuda.synchronize()
+    scale = max(float(w.abs().max()) for w in want)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    if variant in ("mxu2_r2", "bias1_mxu2"):
+        # Per row, against the tf32 bound.
+        worst = max(float(((g - w).abs() / (TF32_REL * m)).max())
+                    for g, w, m in zip(got, want, (xmag, ymag)))
+        ok, bound = worst <= 1.0, "%.3f of the tf32 bound" % worst
+    else:
+        ok, bound = err <= tol * scale, "tol %.0e" % tol
+    print("compare %-19s %-11s %-22s max|err| %.6e /max|F| %.6e (%s)"
+          % (module.NAME, variant, label, err, err / scale, bound))
+    if not finite or not ok:
+        raise AssertionError("%s %s %s: kernel disagrees with its plain "
+                             "version (max|err| %.6e, max|F| %.6e)"
+                             % (module.NAME, variant, label, err, scale))
+    return err, start.elapsed_time(end)
+
+
+def _run_probe_driver(module, argv, runs):
+    """One probe driver in-process, its stdout captured, printed and
+    parsed; its launch count set to 0 just before and checked just after.
+    Returns ({variant: ms per step}, launches)."""
+    module.probe_forces.launches = 0
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = module.main(argv)
+    launches = module.probe_forces.launches
+    text = out.getvalue()
+    print("driver: python -m parallel_nbody_tpu_torch.benchmarks.%s %s"
+          % (module.NAME, " ".join(argv[1:])))
+    print(text.rstrip())
+    lines = text.splitlines()
+    if rc != 0 or len(lines) != 1 + len(module.VARIANTS):
+        raise AssertionError("%s exited %d with %d lines"
+                             % (module.NAME, rc, len(lines)))
+    ms = {}
+    for variant, line in zip(module.VARIANTS, lines[1:]):
+        row = re.fullmatch(r"(\S+) +(\d+\.\d{3}) ms/step +(\S+) pairs/s +"
+                           r"\( *(\d+\.\d)% of (full|r2)\)", line)
+        if row is None or row.group(1) != variant:
+            raise AssertionError("%s: malformed line %r"
+                                 % (module.NAME, line))
+        ms[variant] = float(row.group(2))
+    want = len(module.VARIANTS) * runs * int(argv[2])
+    if launches != want:
+        raise AssertionError("%s launched its kernel %d times, expected %d"
+                             % (module.NAME, launches, want))
+    return ms, launches
+
+
+def phase_probes(dev):
+    """P1 and P2: every variant's kernel against its plain version (N=4096
+    independent, square with coincident bodies, and fed back; then the
+    drivers' own inputs at N=65536), both drivers at N=65536, and K1 on the
+    drivers' inputs in the same run."""
+    from parallel_nbody_tpu_torch.benchmarks import _probe
+    from parallel_nbody_tpu_torch.benchmarks import bias_variants_probe as p2
+    from parallel_nbody_tpu_torch.benchmarks import roofline_probe as p1
+    from parallel_nbody_tpu_torch.ops import cuda_step
+    main = {}
+    for module in (p1, p2):
+        ind = _probe_inputs(4096, 0, dev)
+        square = _probe_inputs(4096, 1, dev, square=True)
+        big = _probe.inputs(PROBE_N, dev)
+        for variant in module.VARIANTS:
+            _compare_probe(module, variant, ind, "N=4096", TOL[torch.float32])
+            _compare_probe(module, variant, square, "N=4096 square 128/256",
+                           TOL[torch.float32], tile_i=128, tile_j=256)
+            xf, yf = module.probe_forces_reference(variant, *ind)
+            _compare_probe(module, variant, [xf, yf] + ind[2:],
+                           "N=4096 fed back", TOL[torch.float32])
+            main[module.NAME, variant] = _compare_probe(
+                module, variant, big, "N=%d" % PROBE_N, TOL_PROBE_MAIN)
+    ms1, launches1 = _run_probe_driver(
+        p1, ["roofline_probe", str(PROBE_N), str(PROBE_STEPS)], runs=2)
+    ms2, launches2 = _run_probe_driver(
+        p2, ["bias_variants_probe", str(PROBE_N), str(PROBE_STEPS)], runs=4)
+    cfg = _cfg("float32")
+    big = _probe.inputs(PROBE_N, dev)
+    off = torch.zeros((), dtype=torch.bool, device=dev)
+    on = torch.ones((), dtype=torch.bool, device=dev)
+    k1 = {"unbiased": _time_ms(lambda: cuda_step.block_forces(
+              cfg, *big, biased=off), 20),
+          "biased": _time_ms(lambda: cuda_step.block_forces(
+              cfg, *big, biased=on), 20)}
+    print("time N=%d on the probes' inputs: K1 unbiased %.6f ms, K1 biased "
+          "%.6f ms; P1 full %.3f ms (%.4f of K1 unbiased); P2 r2 %.3f ms "
+          "(%.4f of K1 unbiased)"
+          % (PROBE_N, k1["unbiased"], k1["biased"], ms1["full"],
+             ms1["full"] / k1["unbiased"], ms2["r2"],
+             ms2["r2"] / k1["unbiased"]))
+    # Each variant once more with CUDA events on the same inputs as K1 (no
+    # feedback), so the probes and K1 compare on one footing.
+    for module in (p1, p2):
+        for variant in module.VARIANTS:
+            ms = _time_ms(lambda: module.probe_forces(variant, *big), 10)
+            print("time N=%d events %-19s %-11s %.6f ms (%.4f of K1 "
+                  "unbiased)" % (PROBE_N, module.NAME, variant, ms,
+                                 ms / k1["unbiased"]))
+    _sass_census()
+    return {"P1": dict(ms=ms1["full"], launches=launches1,
+                       max_abs_err=main["roofline_probe", "full"][0],
+                       plain_ms=main["roofline_probe", "full"][1]),
+            "P2": dict(ms=ms2["r2"], launches=launches2,
+                       max_abs_err=main["bias_variants_probe", "r2"][0],
+                       plain_ms=main["bias_variants_probe", "r2"][1])}
+
+
+def _sass_census():
+    """The fp32 pair loops' instructions per pair (benchmarks/sass_census),
+    and a check that the compiler kept the ablated loops' loads: `full`,
+    `no_rsqrt` and `mem_only` read all four column values of each pair."""
+    from parallel_nbody_tpu_torch.benchmarks import sass_census
+    if sass_census.cuobjdump() is None:
+        print("sass census: cuobjdump not found, skipped")
+        return
+    for lib in ("kernels", "probes"):
+        for row in sass_census.census(sass_census.library_sass(lib)):
+            name, _, _, pairs, ops = row
+            if "<d" in name or "bfloat16" in name:
+                continue  # the fp32 loops are the ones the probes ablate
+            print("sass census %s" % sass_census.format_row(row))
+            if name in ("roofline_probe_kernel<Li0>",
+                        "roofline_probe_kernel<Li1>",
+                        "roofline_probe_kernel<Li3>") and \
+                    sass_census.floats_loaded(ops) < 4 * pairs:
+                raise AssertionError("%s: the compiler dropped column loads "
+                                     "from the pair loop" % name)
+
+
+def _bound(n_rows, n_cols):
+    """(bound_ms, bound_by) of one unbiased force pass over n_rows x n_cols
+    pairs: FLOP_PER_PAIR FP32 operations per pair at the FP32 peak, against
+    8 input vectors read once and 2 outputs written once (4 bytes each) at
+    the memory rate."""
+    t_ops = n_rows * n_cols * FLOP_PER_PAIR / PEAK_FP32_FLOPS
+    t_bytes = 4 * (4 * n_rows + 4 * n_cols + 2 * n_rows) / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke: no CUDA device; this script runs only "
@@ -539,10 +738,11 @@ def main() -> int:
     phase_state_streamed(dev)
     times = phase_timing(dev)
     times_big = phase_timing_streamed(dev)
+    probes = phase_probes(dev)
     print("chip_smoke: %.1f s" % (time.perf_counter() - t_start))
     source = "parallel_nbody_tpu_torch/csrc/%s"
     replaces = "parallel_nbody_tpu/ops/pallas_step.py:%d"
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "block_forces_kernel",
         "route": "cuda",
         "source": source % "forces.cu",
@@ -551,6 +751,7 @@ def main() -> int:
         "max_abs_err": max_err_k1,
         "ms": times["kernel"],
         "plain_ms": times["plain"],
+        "n": MAIN_N,
     }, {
         "name": "band_partials_kernel+band_fold_kernel",
         "route": "cuda",
@@ -560,7 +761,27 @@ def main() -> int:
         "max_abs_err": max_err_k2,
         "ms": times_big["K2"],
         "plain_ms": plain_ms_k2,
-    }]}))
+        "n": BIG_N,
+    }, dict(
+        name="roofline_probe_kernel<full>",
+        route="cuda",
+        source=source % "roofline_probe.cu",
+        replaces="benchmarks/roofline_probe.py:24",
+        n=PROBE_N,
+        **probes["P1"],
+    ), dict(
+        name="bias_probe_kernel<r2>",
+        route="cuda",
+        source=source % "bias_variants_probe.cu",
+        replaces="benchmarks/bias_variants_probe.py:33",
+        n=PROBE_N,
+        **probes["P2"],
+    )]
+    for k in kernels:
+        n = k.pop("n")
+        k["bound_ms"], k["bound_by"] = _bound(n, n)
+        k["library_ms"] = None  # no one PyTorch call computes these
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -6,8 +6,13 @@ easy to find:
 
   - ``config`` / ``state``     — frozen physics config, SoA tensor state
   - ``ops``                    — dense forces, integration, and the
-                                 hand-written CUDA force kernel
-                                 (``ops.cuda_step``, ``csrc/forces.cu``)
+                                 hand-written CUDA force kernels
+                                 (``ops.cuda_step``; ``csrc/forces.cu``,
+                                 ``csrc/forces_streamed.cu``)
+  - ``benchmarks``             — the probes of the kernels' pair loop
+                                 (``csrc/roofline_probe.cu``,
+                                 ``csrc/bias_variants_probe.cu``) and the
+                                 SASS census of the pair loops
   - ``models.engine``          — the single-device step loop
   - ``utils``                  — glibc-rand parity init, PPM header, output
                                  contract, conversion from the JAX package

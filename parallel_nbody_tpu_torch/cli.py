@@ -28,8 +28,9 @@ Not yet ported; each exits 1 naming the flag: --devices=K>1, --mesh2d,
 --comm=ring, --checkpoint, --resume, --trace, --check-nans, and
 secs_per_update > 0 (frame rendering).
 
-The device comes from ``NBODY_PLATFORM=cpu|cuda``; unset, it is cuda when a
-GPU is present and cpu otherwise.  Requesting cuda without a GPU exits 1.
+The device comes from ``NBODY_PLATFORM=cpu|cuda``; unset, it is cuda.  The
+CLI runs on the CPU only under ``NBODY_PLATFORM=cpu``: without a CUDA device
+any other setting exits 1.
 
 Behavioral contract preserved exactly:
   - positional args parsed with C atoi/atol semantics (non-numeric -> 0)
@@ -202,15 +203,14 @@ def _unported(secsup: int, opts) -> str | None:
 def _device(torch):
     """The run's device from NBODY_PLATFORM, or None after reporting why it
     is unusable."""
-    requested = os.environ.get("NBODY_PLATFORM") or (
-        "cuda" if torch.cuda.is_available() else "cpu")
+    requested = os.environ.get("NBODY_PLATFORM") or "cuda"
     if requested not in ("cpu", "cuda"):
         sys.stderr.write("Bad NBODY_PLATFORM value (expected cpu or cuda): "
                          "%s\n" % requested)
         return None
     if requested == "cuda" and not torch.cuda.is_available():
-        sys.stderr.write("NBODY_PLATFORM=cuda but no CUDA device is "
-                         "available\n")
+        sys.stderr.write("no CUDA device is available (the device is cuda "
+                         "unless NBODY_PLATFORM=cpu)\n")
         return None
     return torch.device(requested)
 

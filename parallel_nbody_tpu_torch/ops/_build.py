@@ -1,14 +1,22 @@
 """Build the package's CUDA kernels at first use and load them with ctypes.
 
-``nvcc`` compiles each source of ``csrc/`` (``forces.cu``: K1,
-``forces_streamed.cu``: K2; both include ``pairs.cuh``) to an object, all
-of them at once, and links the objects into
-``_build/libnbody_kernels_<hash>.so`` inside the package.  The sources have
-a plain C interface and no PyTorch headers, so the build takes seconds.  The
-hash covers the sources, the header and the flags: a changed source builds
-a new library and an unchanged one is loaded as built.  Nothing here runs at
-import time, so the package imports on machines without ``nvcc`` or a GPU;
-``load()`` raises there, with nvcc's own error output when a compile fails.
+Two libraries, each built on its own so that a compile error in one never
+blocks the other:
+
+- ``load("kernels")`` (the default): the simulation's force kernels,
+  ``csrc/forces.cu`` (K1) and ``csrc/forces_streamed.cu`` (K2), into
+  ``_build/libnbody_kernels_<hash>.so``;
+- ``load("probes")``: the roofline and coincident-bias probes,
+  ``csrc/roofline_probe.cu`` (P1) and ``csrc/bias_variants_probe.cu`` (P2),
+  into ``_build/libnbody_probes_<hash>.so``.
+
+``nvcc`` compiles each source of a library to an object, all of them at
+once, and links the objects.  The sources have a plain C interface and no
+PyTorch headers, so a build takes seconds.  A library's hash covers its
+sources, the headers and the flags: a changed source builds a new library
+and an unchanged one is loaded as built.  Nothing here runs at import time,
+so the package imports on machines without ``nvcc`` or a GPU; ``load()``
+raises there, with nvcc's own error output when a compile fails.
 """
 
 from __future__ import annotations
@@ -24,8 +32,6 @@ import time
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
-SOURCES = tuple(os.path.join(_CSRC, f)
-                for f in ("forces.cu", "forces_streamed.cu"))
 HEADERS = (os.path.join(_CSRC, "pairs.cuh"),)
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
@@ -36,8 +42,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _VP, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-# name stem -> argtypes; each stem exists for f32, f64 and bf16.
-_SIGNATURES = {
+# Argtypes of the force kernels' launchers; each stem exists for f32, f64
+# and bf16 (name stem_suffix).
+_KERNEL_STEMS = {
     # 4 row pointers, m, 4 column pointers, k, row_g0, col_g0, gravity,
     # biased flag pointer, biased default, compensated, 2 outputs, stream.
     "nbody_block_forces": ([_VP] * 4 + [_I64] + [_VP] * 4
@@ -55,21 +62,36 @@ _SIGNATURES = {
                         _VP, _VP],
 }
 DTYPE_SUFFIXES = ("f32", "f64", "bf16")
+# The probes' launchers: variant, 8 input pointers (xi, yi, mi, ri, xj, yj,
+# mj, rj), n, tile_i, tile_j, 2 outputs, stream.
+_PROBE_ARGTYPES = [_INT] + [_VP] * 8 + [_I64] * 3 + [_VP] * 3
+
+# library name -> (sources in csrc/, {function name: argtypes}).
+LIBRARIES = {
+    "kernels": (("forces.cu", "forces_streamed.cu"),
+                {"%s_%s" % (stem, suffix): argtypes
+                 for stem, argtypes in _KERNEL_STEMS.items()
+                 for suffix in DTYPE_SUFFIXES}),
+    "probes": (("roofline_probe.cu", "bias_variants_probe.cu"),
+               {"nbody_roofline_probe": _PROBE_ARGTYPES,
+                "nbody_bias_variants_probe": _PROBE_ARGTYPES}),
+}
 
 
 class Library:
     """The loaded kernel library with its argtypes set."""
 
-    def __init__(self, path: str, build_log: str, build_seconds: float):
+    def __init__(self, path: str, build_log: str, build_seconds: float,
+                 signatures):
         self.path = path
         self.build_log = build_log
         self.build_seconds = build_seconds
         self.cdll = ctypes.CDLL(path)
-        for stem, argtypes in _SIGNATURES.items():
-            for suffix in DTYPE_SUFFIXES:
-                fn = getattr(self.cdll, "%s_%s" % (stem, suffix))
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+        for name, argtypes in signatures.items():
+            fn = getattr(self.cdll, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        # Every library defines its own copy of the error-string function.
         self.cdll.nbody_cuda_error_string.argtypes = [ctypes.c_int]
         self.cdll.nbody_cuda_error_string.restype = ctypes.c_char_p
 
@@ -93,9 +115,9 @@ def _nvcc() -> str:
     return found
 
 
-def _source_hash() -> str:
+def _source_hash(sources) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES + HEADERS:
+    for src in sources + HEADERS:
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
             h.update(f.read())
@@ -118,12 +140,16 @@ def _run_all(cmds):
 
 
 @functools.cache
-def load() -> Library:
-    """Build (unless already built from these sources) and load the kernel
-    library.  Raises RuntimeError if nvcc is missing or fails."""
-    target = os.path.join(BUILD_DIR, "libnbody_kernels_%s.so" % _source_hash())
+def load(name: str = "kernels") -> Library:
+    """Build (unless already built from these sources) and load the library
+    ``name`` of ``LIBRARIES``.  Raises RuntimeError if nvcc is missing or
+    fails."""
+    files, signatures = LIBRARIES[name]
+    sources = tuple(os.path.join(_CSRC, f) for f in files)
+    target = os.path.join(BUILD_DIR, "libnbody_%s_%s.so"
+                          % (name, _source_hash(sources)))
     if os.path.exists(target):
-        return Library(target, "", 0.0)
+        return Library(target, "", 0.0, signatures)
     nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
     # Build in a private directory and rename the library into place:
@@ -131,11 +157,11 @@ def load() -> Library:
     work = tempfile.mkdtemp(dir=BUILD_DIR)
     try:
         objs = [os.path.join(work, os.path.basename(src) + ".o")
-                for src in SOURCES]
+                for src in sources]
         t0 = time.perf_counter()
         failed, log = _run_all(
             [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
-             for obj, src in zip(objs, SOURCES)])
+             for obj, src in zip(objs, sources)])
         if not failed:
             lib = os.path.join(work, "lib.so")
             failed, link_log = _run_all(
@@ -149,4 +175,4 @@ def load() -> Library:
         os.replace(lib, target)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    return Library(target, log, seconds)
+    return Library(target, log, seconds, signatures)

@@ -285,6 +285,17 @@ def test_cuda_requested_without_card_exits_1(arena, capsys, monkeypatch):
     assert rc == 1 and out == "" and "no CUDA device" in err
 
 
+def test_unset_platform_without_card_exits_1(arena, capsys, monkeypatch):
+    """The device defaults to cuda: with NBODY_PLATFORM unset and no card
+    the CLI refuses to run, and never falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    monkeypatch.delenv("NBODY_PLATFORM", raising=False)
+    rc = cli.main(["nbody", "16", "0", arena, "3", "--pallas"])
+    out = capsys.readouterr()
+    assert rc == 1 and out.out == "" and "no CUDA device" in out.err
+
+
 def test_missing_ppm_exits_1(tmp_path, capsys, monkeypatch):
     rc, _, err = _main(["16", "0", str(tmp_path / "nope.ppm"), "3"], capsys,
                        monkeypatch)

@@ -9,7 +9,10 @@ against its plain version on the same card is held to 1e-5 * max|F| in fp32
 (the kernels sum each row sequentially; at these sizes the difference is
 below 1e-6 * max|F|) and 1e-12 * max|F| in fp64.  The magnitude-spread case
 keeps the bounds of tests/test_accum.py; bf16 launches are bit-equal to the
-fp32 launch on the upcast inputs rounded once.
+fp32 launch on the upcast inputs rounded once.  The probe kernels (P1, P2)
+at N=4096: 2e-5 * max|F| for the fp32 variants (chip_smoke.TOL), and for
+the two tensor-core variants, which round each term to tf32 (2^-11
+relative), the per-row bound |err_i| <= 2^-10 * |G m_i| * sum_j |term_ij|.
 """
 
 import numpy as np
@@ -17,12 +20,15 @@ import pytest
 import torch
 
 from parallel_nbody_tpu_torch import cli
+from parallel_nbody_tpu_torch.benchmarks import _probe
+from parallel_nbody_tpu_torch.benchmarks import bias_variants_probe as p2
+from parallel_nbody_tpu_torch.benchmarks import roofline_probe as p1
 from parallel_nbody_tpu_torch.config import SimConfig
 from parallel_nbody_tpu_torch.models.engine import run
 from parallel_nbody_tpu_torch.ops import cuda_step
 from parallel_nbody_tpu_torch.state import init_state
 from parallel_nbody_tpu_torch.utils import ppm
-from torch_cases import BLOCK_CASES, KICK, blocks, glibc_like
+from torch_cases import BLOCK_CASES, KICK, blocks, glibc_like, probe_inputs
 
 TOL = {"float32": 1e-5, "float64": 1e-12}
 
@@ -271,3 +277,86 @@ def test_cli_bf16_compensated_on_card(dev, tmp_path, capsys, monkeypatch):
     table = np.array([[float(v) for v in line.split()]
                       for line in out.splitlines()])
     assert table.shape == (512, 6) and np.isfinite(table).all()
+
+
+# ---------------------------------------------------------------------------
+# the probes P1 and P2
+# ---------------------------------------------------------------------------
+
+PROBES = {"roofline_probe": p1, "bias_variants_probe": p2}
+PROBE_CASES = [(name, v) for name, m in PROBES.items() for v in m.VARIANTS]
+
+
+def _probe_args(case, dev):
+    """(arrays on the card, tiles) for one probe input at N=4096."""
+    if case == "independent":
+        return _on(probe_inputs(4096, 30), "float32", dev), {}
+    if case == "square_coincident":
+        return (_on(probe_inputs(4096, 31, square=True), "float32", dev),
+                dict(tile_i=128, tile_j=256))
+    raise ValueError(case)
+
+
+def _assert_probe_close(module, variant, got, args, tiles):
+    *want, xmag, ymag = module.probe_forces_reference(
+        variant, *args, magnitudes=True, **tiles)
+    scale = max(float(w.abs().max()) for w in want)
+    for g, w, mag in zip(got, want, (xmag, ymag)):
+        assert g.device == w.device and g.dtype == torch.float32
+        assert bool(torch.isfinite(g).all())
+        if variant in p2.TF32_VARIANTS:
+            assert bool(((g - w).abs() <= 2.0 ** -10 * mag).all())
+        else:
+            assert float((g - w).abs().max()) <= 2e-5 * scale
+
+
+@pytest.mark.parametrize("case", ["independent", "square_coincident",
+                                  "fed_back"])
+@pytest.mark.parametrize("probe, variant", PROBE_CASES)
+def test_probe_kernel_matches_reference(probe, variant, case, dev):
+    module = PROBES[probe]
+    args, tiles = _probe_args("independent" if case == "fed_back" else case,
+                              dev)
+    if case == "fed_back":
+        xf, yf = module.probe_forces(variant, *args, **tiles)
+        args = [xf, yf] + args[2:]
+    before = module.probe_forces.launches
+    got = module.probe_forces(variant, *args, **tiles)
+    torch.cuda.synchronize()
+    assert module.probe_forces.launches == before + 1
+    _assert_probe_close(module, variant, got, args, tiles)
+
+
+@pytest.mark.parametrize("probe", sorted(PROBES))
+def test_probe_forces_launches_on_card_never_plain(probe, dev, monkeypatch):
+    module = PROBES[probe]
+
+    def plain(*a, **kw):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(_probe, "reference", plain)
+    args, _ = _probe_args("independent", dev)
+    before = module.probe_forces.launches
+    for variant in module.VARIANTS:
+        module.probe_forces(variant, *args)
+    torch.cuda.synchronize()
+    assert module.probe_forces.launches == before + len(module.VARIANTS)
+
+
+@pytest.mark.parametrize("probe, runs", [("roofline_probe", 2),
+                                         ("bias_variants_probe", 4)])
+def test_probe_main_on_card(probe, runs, dev, capsys):
+    """The probe's main() at a small size: the device line, then one line
+    per variant in the JAX probe's format, every step through the
+    kernel."""
+    module = PROBES[probe]
+    module.probe_forces.launches = 0
+    assert module.main([probe, "4096", "3"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 1 + len(module.VARIANTS)
+    base = module.VARIANTS[0]
+    for variant, line in zip(module.VARIANTS, lines[1:]):
+        words = line.split()
+        assert words[0] == variant and words[2] == "ms/step"
+        assert float(words[1]) > 0 and line.endswith("of %s)" % base)
+    assert module.probe_forces.launches == len(module.VARIANTS) * runs * 3

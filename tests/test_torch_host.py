@@ -289,19 +289,46 @@ def test_atoi_equal():
 # ---------------------------------------------------------------------------
 
 def test_port_never_imports_jax():
-    code = ("import sys\n"
-            "import parallel_nbody_tpu_torch\n"
-            "import parallel_nbody_tpu_torch.cli\n"
-            "import parallel_nbody_tpu_torch.__main__\n"
-            "import parallel_nbody_tpu_torch.models.engine\n"
-            "import parallel_nbody_tpu_torch.ops.cuda_step\n"
-            "import parallel_nbody_tpu_torch.utils.convert\n"
-            "import parallel_nbody_tpu_torch.utils.output\n"
-            "bad = sorted(m for m in sys.modules\n"
+    """Every module of the port, found by walking the package (so new
+    modules are covered), and chip_smoke.py import without loading JAX,
+    the JAX package or the JAX package's benchmarks/ scripts."""
+    code = ("import importlib, os, pkgutil, sys\n"
+            "import parallel_nbody_tpu_torch as pkg\n"
+            "import chip_smoke\n"
+            "names = [m.name for m in pkgutil.walk_packages(\n"
+            "    pkg.__path__, pkg.__name__ + '.')]\n"
+            "for name in names:\n"
+            "    importlib.import_module(name)\n"
+            "bench = os.path.join(%r, 'benchmarks') + os.sep\n"
+            "bad = sorted(m for m, mod in list(sys.modules.items())\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib',\n"
-            "                                    'parallel_nbody_tpu'))\n"
-            "assert not bad, bad\n")
+            "                                    'parallel_nbody_tpu',\n"
+            "                                    'benchmarks')\n"
+            "             or (getattr(mod, '__file__', None) or '')\n"
+            "             .startswith(bench))\n"
+            "assert not bad, bad\n"
+            "print('\\n'.join(names))\n" % REPO)
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, env=env, cwd=REPO, timeout=120)
     assert r.returncode == 0, r.stderr
+    walked = set(r.stdout.split())
+    for name in ("cli", "__main__", "models.engine", "ops.cuda_step",
+                 "ops._build", "benchmarks.roofline_probe",
+                 "benchmarks.bias_variants_probe", "utils.convert"):
+        assert "parallel_nbody_tpu_torch." + name in walked, name
+
+
+def test_package_data_ships_every_kernel_source():
+    """Every file under csrc/ matches a package-data glob of
+    pyproject.toml, so an installed package can build its kernels."""
+    import fnmatch
+    import tomllib
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        data = tomllib.load(f)["tool"]["setuptools"]["package-data"]
+    globs = data["parallel_nbody_tpu_torch"]
+    csrc = os.path.join(REPO, "parallel_nbody_tpu_torch", "csrc")
+    files = sorted(os.listdir(csrc))
+    assert {"pairs.cuh", "forces.cu", "roofline_probe.cu"} <= set(files)
+    for name in files:
+        assert any(fnmatch.fnmatch("csrc/" + name, g) for g in globs), name

@@ -52,3 +52,23 @@ def blocks(case):
         x[280:], y[280:], r[280:] = 1e9, 1e9, 0.0  # pad_state padding
         return [x, y, m, r], [x, y, m, r], 0, 0
     raise ValueError(case)
+
+
+# Rows of the probes' square input that share a position: bodies 7 and 300,
+# and 10 and 11.
+PROBE_COINCIDENT = ((7, 300), (10, 11))
+
+
+def probe_inputs(n, seed, square=False):
+    """Eight float32 arrays (xi, yi, mi, ri, xj, yj, mj, rj), uniform in
+    [1, 2) as the probes draw them.  Independent rows and columns, or with
+    ``square`` the columns equal to the rows and the PROBE_COINCIDENT pairs
+    at one position."""
+    rng = np.random.RandomState(seed)
+    rows = [rng.uniform(1, 2, n).astype(np.float32) for _ in range(4)]
+    if not square:
+        return rows + [rng.uniform(1, 2, n).astype(np.float32)
+                       for _ in range(4)]
+    for a, b in PROBE_COINCIDENT:
+        rows[0][b], rows[1][b] = rows[0][a], rows[1][a]
+    return rows + [a.copy() for a in rows]

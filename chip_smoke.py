@@ -12,9 +12,16 @@ run against the CPU and two full-width steps against the plain version, and
 times the kernels against their plain versions.  It also builds the probes
 P1 (``roofline_probe.cu``) and P2 (``bias_variants_probe.cu``) beside the
 force kernels, holds each of their 12 variants against its plain version,
-and runs both probe drivers at N=65536 through their kernels.  Every phase
-passes or raises: any failure exits non-zero before the result lines.  The
-last two lines of stdout are the kernel table and the result, as JSON.
+and runs both probe drivers at N=65536 through their kernels.  K1 and K2
+add the coincident kick through the TPU kernel's dx bias, segmented by
+tile (csrc/pairs.cuh): both are also held against their plain versions on
+blocks whose offsets are not multiples of 128, with coincident pairs placed
+in a tile below, a tile above and both overlapping tiles.  The SASS census
+tells K1's and K2's three fp32 pair loops apart (unbiased, constant bias,
+per-pair bias), checks that none holds a per-pair branch or the rsqrtf
+wrapper, and gives each kernel's issue bound.  Every phase passes or
+raises: any failure exits non-zero before the result lines.  The last two
+lines of stdout are the kernel table and the result, as JSON.
 
 Tolerances (each comparison uses the plain version's max |F| as the scale):
   - kernel vs plain version, fp32: 2e-5 * max|F| up to N=65536.  The
@@ -87,6 +94,18 @@ PEAK_FP32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 # square, max, forced^2, * dsqr, the floor, mj * inv, two FMAs into the sums
 # (4); the rsqrt runs on the MUFU.
 FLOP_PER_PAIR = 16
+# Coincident pairs (global ids) placed in an N=4096 glibc state for the
+# block of rows 1000..2999 against columns 300..4095: row_g0 and col_g0 are
+# not multiples of 128, so each 128-row block overlaps two 128-wide column
+# tiles.  (1150, 1200): each term lies in one of the two tiles that overlap
+# the block [1128, 1256); (1500, 2500): row 1500 sees body 2500 in a tile
+# wholly above, row 2500 sees 1500 in a tile wholly below; (400, 1300): row
+# 1300 sees body 400 in the tile [300, 428), wholly below.
+PLACED_PAIRS = ((1150, 1200), (1500, 2500), (400, 1300))
+PLACED_ROWS, PLACED_COLS = (1000, 3000), (300, 4096)
+# The issue model of the pair loop: each SM has four schedulers, each
+# issuing one warp instruction (32 pairs) per clock.
+SCHEDULERS_PER_SM, WARP = 4, 32
 
 
 def _cfg(dtype):
@@ -103,6 +122,8 @@ def _bodies(st):
 
 
 def phase_device():
+    """Prints the card, its power limit and its issue rate; returns (name,
+    warp instructions per second at the maximum SM clock)."""
     name = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
     print("device: %s, capability %s, count %d, torch %s, cuda %s"
@@ -115,7 +136,16 @@ def phase_device():
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip())
-    return name
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    sm_hz = float(clock.stdout.split()[0]) * 1e6
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    issue_hz = SCHEDULERS_PER_SM * sms * sm_hz
+    print("SMs %d, maximum SM clock %.0f MHz: %.6e warp instructions/s"
+          % (sms, sm_hz / 1e6, issue_hz))
+    return name, issue_hz
 
 
 def phase_build():
@@ -181,6 +211,31 @@ def _two_body_kick(kernel, dtype, dev, **kw):
           % ("K1" if kernel == K1 else "K2", _name(dtype)))
 
 
+def _placed_blocks(dtype, dev):
+    """(rows, cols) of PLACED_ROWS x PLACED_COLS in an N=4096 glibc state
+    with PLACED_PAIRS made coincident."""
+    from parallel_nbody_tpu_torch.state import init_state
+    st = init_state(4096, _cfg(_name(dtype)), device=dev)
+    x, y = st.x.clone(), st.y.clone()
+    for a, b in PLACED_PAIRS:
+        x[b], y[b] = x[a], y[a]
+    full = (x, y, st.mass, st.radius)
+    return (tuple(t[slice(*PLACED_ROWS)].contiguous() for t in full),
+            tuple(t[slice(*PLACED_COLS)].contiguous() for t in full))
+
+
+def _compare_placed(dtype, dev, kernel, **kw):
+    """The bias segments at misaligned offsets, both flags, both accums."""
+    rows, cols = _placed_blocks(dtype, dev)
+    for biased in (True, False):
+        for accum in ("plain", "compensated"):
+            _compare("placed pairs g0=%d,%d" % (PLACED_ROWS[0],
+                                                PLACED_COLS[0]),
+                     rows, cols, dtype, biased, row_g0=PLACED_ROWS[0],
+                     col_g0=PLACED_COLS[0], kernel=kernel, accum=accum,
+                     **kw)
+
+
 def phase_compare(dev):
     from parallel_nbody_tpu_torch.state import init_state, pad_state
     for dtype in (torch.float32, torch.float64):
@@ -202,6 +257,7 @@ def phase_compare(dev):
         b = (padded.x, padded.y, mass, padded.radius)
         for biased in (True, False):
             _compare("zero-mass + far padding", b, b, dtype, biased)
+        _compare_placed(dtype, dev, K1)
         _two_body_kick(K1, dtype, dev)
     # The main path's shape and type: N=65536 fp32 from the glibc init.
     st = init_state(MAIN_N, _cfg("float32"), device=dev)
@@ -239,6 +295,7 @@ def phase_compare_streamed(dev):
         for biased in (True, False):
             _compare("zero-mass + far padding band 256", b, b, dtype, biased,
                      kernel=K2, band=256)
+        _compare_placed(dtype, dev, K2, band=1024)
         _two_body_kick(K2, dtype, dev)
     # The main path's shape and type: N=262144 fp32, band 65536 (4 bands).
     b = _bodies(init_state(BIG_N, _cfg("float32"), device=dev))
@@ -671,7 +728,6 @@ def phase_probes(dev):
             print("time N=%d events %-19s %-11s %.6f ms (%.4f of K1 "
                   "unbiased)" % (PROBE_N, module.NAME, variant, ms,
                                  ms / k1["unbiased"]))
-    _sass_census()
     return {"P1": dict(ms=ms1["full"], launches=launches1,
                        max_abs_err=main["roofline_probe", "full"][0],
                        plain_ms=main["roofline_probe", "full"][1]),
@@ -682,24 +738,75 @@ def phase_probes(dev):
 
 def _sass_census():
     """The fp32 pair loops' instructions per pair (benchmarks/sass_census),
-    and a check that the compiler kept the ablated loops' loads: `full`,
-    `no_rsqrt` and `mem_only` read all four column values of each pair."""
+    with K1's and K2's three loops told apart.  Checks that each of those
+    loops holds no FSETP (neither the old per-pair dsqr == 0 test nor the
+    rsqrtf wrapper) and no branch but its own, and that the compiler kept
+    the ablated probe loops' loads: `full`, `no_rsqrt` and `mem_only` read
+    all four column values of each pair.  Returns {(kernel, role):
+    instructions per pair} of K1's and K2's fp32 loops (plain accum)."""
     from parallel_nbody_tpu_torch.benchmarks import sass_census
     if sass_census.cuobjdump() is None:
         print("sass census: cuobjdump not found, skipped")
-        return
+        return {}
+    ipp = {}
     for lib in ("kernels", "probes"):
-        for row in sass_census.census(sass_census.library_sass(lib)):
-            name, _, _, pairs, ops = row
+        rows = sass_census.census(sass_census.library_sass(lib))
+        roles = sass_census.loop_roles(rows)
+        for row in rows:
+            name, start, _, pairs, ops = row
             if "<d" in name or "bfloat16" in name:
                 continue  # the fp32 loops are the ones the probes ablate
-            print("sass census %s" % sass_census.format_row(row))
+            role = roles.get((name, start), "")
+            print("sass census %s" % sass_census.format_row(row, role))
+            if name.startswith(sass_census.FORCE_KERNELS):
+                if not role or ops["FSETP"] or ops["BRA"] != 1:
+                    raise AssertionError(
+                        "%s loop %x (%s): FSETP %d, BRA %d"
+                        % (name, start, role or "no role", ops["FSETP"],
+                           ops["BRA"]))
+                if name.endswith("<fLb0>"):
+                    ipp[name.split("<")[0], role] = \
+                        sass_census.instr_per_pair(row)
             if name in ("roofline_probe_kernel<Li0>",
                         "roofline_probe_kernel<Li1>",
                         "roofline_probe_kernel<Li3>") and \
                     sass_census.floats_loaded(ops) < 4 * pairs:
                 raise AssertionError("%s: the compiler dropped column loads "
                                      "from the pair loop" % name)
+    missing = [(k, r) for k in sass_census.FORCE_KERNELS
+               for r in sass_census.ROLES if (k, r) not in ipp]
+    if missing:
+        raise AssertionError("sass census: no loop for %s" % missing)
+    return ipp
+
+
+def _issue_report(ipp, issue_hz, times, times_big):
+    """Each force kernel's times at its main shape beside the issue bound of
+    its loops (instructions per pair from the census, at the maximum SM
+    clock), the biased/unbiased ratio, and the biased-unbiased gap beside
+    any_coincident's time."""
+    for kernel, label, n, t_off, t_on, t_any in (
+            ("block_forces_kernel", "K1", MAIN_N, times["kernel"],
+             times["kernel_biased"], times["any_coincident"]),
+            ("band_partials_kernel", "K2", BIG_N, times_big["K2"],
+             times_big["K2_biased"], times_big["any_coincident"])):
+        warp_instr = n * n / WARP
+        bound = {role: ipp[kernel, role] * warp_instr / issue_hz * 1e3
+                 for role in ("unbiased", "constant bias")} if ipp else {}
+        line = ("issue %s N=%d: unbiased %.6f ms, biased %.6f ms, "
+                "biased/unbiased %.4f; gap %.6f ms beside any_coincident "
+                "%.6f ms" % (label, n, t_off, t_on, t_on / t_off,
+                             t_on - t_off, t_any))
+        if bound:
+            line += ("; issue bound unbiased %.3f instr/pair %.6f ms (%.1f%% "
+                     "of the issue rate), constant bias %.3f instr/pair "
+                     "%.6f ms (%.1f%%)"
+                     % (ipp[kernel, "unbiased"], bound["unbiased"],
+                        100 * bound["unbiased"] / t_off,
+                        ipp[kernel, "constant bias"],
+                        bound["constant bias"],
+                        100 * bound["constant bias"] / t_on))
+        print(line)
 
 
 def _bound(n_rows, n_cols):
@@ -723,7 +830,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
-    name = phase_device()
+    name, issue_hz = phase_device()
     phase_build()
     max_err_k1 = phase_compare(dev)
     max_err_k2, plain_ms_k2 = phase_compare_streamed(dev)
@@ -739,6 +846,7 @@ def main() -> int:
     times = phase_timing(dev)
     times_big = phase_timing_streamed(dev)
     probes = phase_probes(dev)
+    _issue_report(_sass_census(), issue_hz, times, times_big)
     print("chip_smoke: %.1f s" % (time.perf_counter() - t_start))
     source = "parallel_nbody_tpu_torch/csrc/%s"
     replaces = "parallel_nbody_tpu/ops/pallas_step.py:%d"
@@ -750,6 +858,7 @@ def main() -> int:
         "launches": launches_k1,
         "max_abs_err": max_err_k1,
         "ms": times["kernel"],
+        "ms_biased": times["kernel_biased"],
         "plain_ms": times["plain"],
         "n": MAIN_N,
     }, {
@@ -760,6 +869,7 @@ def main() -> int:
         "launches": launches_k2,
         "max_abs_err": max_err_k2,
         "ms": times_big["K2"],
+        "ms_biased": times_big["K2_biased"],
         "plain_ms": plain_ms_k2,
         "n": BIG_N,
     }, dict(

@@ -6,12 +6,13 @@ built library (``cuobjdump -sass``).
 builds the library at first use (``ops/_build.py``) and prints one line per
 inner loop of each kernel: a loop that ends in a backward branch, reads
 shared memory and holds no barrier, i.e. the sweep over a staged column
-tile.  The line gives the loop's instructions per pair and their mix.  Each
-SM sub-partition issues one warp instruction per clock, and the FP32 pipe
-takes one FP32 instruction per clock from each, so a pair loop whose
-instructions are nearly all FP32 is bound by instruction issue: its time
-goes as its instructions per pair, whatever their unit.  It needs
-``cuobjdump`` (CUDA toolkit), not a card.
+tile.  The line gives the loop's instructions per pair and their mix, and
+for the force kernels K1 and K2 which of their three pair loops it is
+(``loop_roles``).  Each SM sub-partition issues one warp instruction per
+clock, and the FP32 pipe takes one FP32 instruction per clock from each, so
+a pair loop whose instructions are nearly all FP32 is bound by instruction
+issue: its time goes as its instructions per pair, whatever their unit.  It
+needs ``cuobjdump`` (CUDA toolkit), not a card.
 """
 
 from __future__ import annotations
@@ -38,6 +39,10 @@ _FUNCTION = re.compile(r"Function : (\S+)")
 _INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 # A kernel's name follows its length in the mangled symbol.
 _KERNEL = re.compile(r"\d+([a-z_]+_kernel)I(\w+?)EE")
+# The force kernels: each instantiation holds three pair loops
+# (csrc/pairs.cuh::sweep_segment), one per kind of dx bias.
+FORCE_KERNELS = ("block_forces_kernel", "band_partials_kernel")
+ROLES = ("unbiased", "constant bias", "per-pair bias")
 
 
 def kernel_name(mangled: str) -> str:
@@ -103,18 +108,46 @@ def census(sass: str):
     return rows
 
 
+def loop_roles(rows):
+    """{(kernel, loop start): role} for the pair loops of the force kernels
+    in census rows.  The per-pair loop is the one that converts the index
+    difference to a float (I2F); of the other two the constant-bias loop
+    has one FADD per pair more than the unbiased one, so it is the longer.
+    A kernel whose loops do not fit that pattern gets no roles."""
+    loops = collections.defaultdict(list)
+    for name, start, _, _, ops in rows:
+        if name.startswith(FORCE_KERNELS):
+            loops[name].append((start, ops))
+    roles = {}
+    for name, found in loops.items():
+        conv = [s for s, ops in found
+                if any(op.startswith("I2F") for op in ops)]
+        rest = sorted((sum(ops.values()), s) for s, ops in found
+                      if s not in conv)
+        if len(conv) != 1 or len(rest) != 2 or rest[0][0] == rest[1][0]:
+            continue
+        for start, role in zip((rest[0][1], rest[1][1], conv[0]), ROLES):
+            roles[name, start] = role
+    return roles
+
+
 def floats_loaded(ops) -> int:
     """Shared-memory floats one pass of a loop reads."""
     return sum(_LDS_FLOATS.get(op, 0) * n for op, n in ops.items())
 
 
-def format_row(row) -> str:
+def instr_per_pair(row) -> float:
+    """Instructions per pair of one census row."""
+    return sum(row[4].values()) / row[3]
+
+
+def format_row(row, role: str = "") -> str:
     name, start, end, pairs, ops = row
     total = sum(ops.values())
     fp32 = sum(ops[op] for op in FP32)
-    return ("%-34s loop %5x-%5x  %6.3f instr/pair: FP32 %6.3f, MUFU %5.3f, "
-            "HMMA %5.3f, shared floats %5.3f, other %6.3f"
-            % (name, start, end, total / pairs, fp32 / pairs,
+    return ("%-34s %-13s loop %5x-%5x  %6.3f instr/pair: FP32 %6.3f, MUFU "
+            "%5.3f, HMMA %5.3f, shared floats %5.3f, other %6.3f"
+            % (name, role, start, end, total / pairs, fp32 / pairs,
                ops["MUFU"] / pairs, ops["HMMA"] / pairs,
                floats_loaded(ops) / pairs,
                (total - fp32 - ops["MUFU"] - ops["HMMA"]
@@ -141,8 +174,10 @@ def library_sass(name: str) -> str:
 def main(argv=None) -> int:
     argv = sys.argv if argv is None else argv
     for name in argv[1:] or ("kernels", "probes"):
-        for row in census(library_sass(name)):
-            print(format_row(row))
+        rows = census(library_sass(name))
+        roles = loop_roles(rows)
+        for row in rows:
+            print(format_row(row, roles.get((row[0], row[1]), "")))
     return 0
 
 

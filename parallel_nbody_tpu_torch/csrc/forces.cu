@@ -12,23 +12,40 @@
 // and F_i = acc_i * (G * mi), the row factor applied once after the sum.
 // Coincident distinct pairs (dsqr == 0, gj != gi, with g the GLOBAL body
 // index row_g0 + i / col_g0 + j) get the reference's atan2(0, 0) kick
-// mj * sign(gj - gi) / forced along +x (nbody-seq.c:91-106), added directly
-// rather than through the TPU kernel's dx bias.  Self-pairs contribute 0
-// (dx = dy = 0 and sign 0); eps keeps rsqrt finite there.
+// mj * sign(gj - gi) / forced along +x (nbody-seq.c:91-106) through the TPU
+// kernel's dx bias, segmented by tile: -C on column tiles wholly below the
+// block's rows, +C wholly above, (gj - gi) * P on the one or two tiles that
+// overlap them (pairs.cuh says where these fall against Pallas's tiles).
+// Self-pairs get bias 0 and contribute 0; eps keeps rsqrt finite there.
 //
 // Options (pairs.cuh): fp32, fp64, and bf16 storage with fp32 compute;
 // accum "plain" (each pair term added to the row sum) or "compensated"
 // (each 128-wide j-tile's partial Kahan-folded into the row sum, as the
 // Pallas kernel folds each column tile's partial).
 //
-// Bound: compute.  Each of the M*K ordered pairs costs about 20 FP32
-// operations (most of them fused multiply-adds) and one rsqrt on the SFU,
-// while each body's 16 bytes (x, y, m, r) are read from device memory once
-// per block of rows.  The j-tiles staged through shared memory are what keep
-// it compute-bound: a block of kBlock threads reads every column body once
-// from device memory (through L2) and then serves it to all kBlock rows from
-// shared memory, so device-memory traffic is 16*K bytes per kBlock rows.
+// Bound: instruction issue.  Each SM's four schedulers issue one warp
+// instruction per clock, and the fp32 pair loop is nearly all FP32-pipe
+// instructions, so its time goes as its instructions per pair.  The census
+// of the built library (benchmarks/sass_census.py) counts, per pair, in
+// the fp32 loops: unbiased 15.0 (12 FP32 — 3 FADD, 4 FMUL, 4 FFMA,
+// 1 FMNMX — one MUFU.RSQ, one LDS.128 (a 16-byte load of one of the four
+// staged arrays serves 4 pairs), and 1.0 of address and loop overhead: per
+// 8 pairs four ULEA, a UIADD3, a UISETP, a PLOP3 and the branch); constant
+// bias 15.875 (one FADD more, 0.875 overhead); per-pair bias 18.0 (an IADD3
+// and an I2FP more, the bias folded into an FFMA), on one or two tiles of a
+// row's N/128.  That issue time is about twice the FP32-operation bound,
+// since the 67 TFLOP/s peak counts an FFMA as two operations and the loop's
+// FADD/FMUL/FMNMX as one each.  Memory is far below both: each block of
+// kBlock threads reads every column body (16 bytes) once from device
+// memory, through L2, and serves it to its kBlock rows from shared memory.
 // The Kahan folds add 3 adds per 128 pairs per component.
+//
+// What does not serve this loop.  Tensor cores: the pair math has no
+// product that keeps fp32 accuracy (dsqr as |p|^2 - 2 p.q + |q|^2 cancels
+// at pixel coordinates), and a tf32 row reduction on mma.sync measured
+// 1.41x the scalar loop (P2, csrc/bias_variants_probe.cu).  TMA or cp.async
+// staging: the staging costs about 0.08 issue slots per pair (four loads,
+// four stores and two barriers per 128 pairs), so the copy is not the limit.
 //
 // Layout: one thread per row body, blocks of kBlock threads, j-tiles of
 // kBlock column bodies; the accumulator lives in registers and no sum crosses
@@ -45,9 +62,10 @@
 // Build (ops/_build.py):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -Xcompiler -fPIC -Xptxas -v -c
-// No --use_fast_math: rsqrtf is the SFU approximation (2 ulp) either way,
-// the default -fmad=true contracts a*b+c into FMAs, and the Kahan folds
-// must not be reassociated.
+// No --use_fast_math and no -ftz: the fp32 rsqrt is the bare MUFU
+// instruction by inline PTX on its one operand (pairs.cuh says why that is
+// rsqrtf's result), the default -fmad=true contracts a*b+c into FMAs, and
+// neither the bias order nor the Kahan folds may be reassociated.
 
 #include "pairs.cuh"
 
@@ -73,13 +91,13 @@ __global__ void __launch_bounds__(kBlock) block_forces_kernel(
   const T x0 = row_ok ? nbody::to_compute(xi[i]) : T(0);
   const T y0 = row_ok ? nbody::to_compute(yi[i]) : T(0);
   const T r0 = row_ok ? nbody::to_compute(ri[i]) : T(0);
-  const long long gi = row_g0 + i;
+  const long long gi0 = row_g0 + static_cast<int64_t>(blockIdx.x) * kBlock;
   const bool biased = biased_flag != nullptr ? *biased_flag
                                              : biased_default != 0;
 
   T ax = T(0), ay = T(0);
   nbody::sweep_columns<S, kComp>(xj, yj, mj, rj, 0, k, col_g0, x0, y0, r0,
-                                 gi, biased, sx, sy, sm, sr, ax, ay);
+                                 gi0, biased, sx, sy, sm, sr, ax, ay);
   if (row_ok) {
     const T gmi = nbody::to_compute(mi[i]) * gravity;
     nbody::store(xf + i, ax * gmi);

@@ -2,16 +2,18 @@
 //
 // Replaces parallel_nbody_tpu/ops/pallas_step.py::_force_kernel_streamed
 // (reached through pallas_block_forces_streamed; the JAX package runs it
-// above 131072 bodies).  It computes K1's one-sided block force (see
-// forces.cu for the pair math and the coincident kick) with K2's summation
-// structure: the columns are cut into bands of `band` bodies (65536 by
-// default; a multiple of the 128-wide tile), each row's raw acceleration is
-// summed band by band, and the band partials are folded in band order
-// 0..nb-1 before G * m_i is applied.  Under accum "compensated" the tiles of
-// a band are Kahan-folded into the band partial (whose compensation term is
-// dropped at band end, as pallas_step._acc_finish drops it) and the band
-// partials are Kahan-folded into the total (the TPU kernel's two scratch
-// rows, pallas_step.py:460-463).  bf16 is storage only (pairs.cuh).
+// above 131072 bodies).  It computes K1's one-sided block force (forces.cu
+// gives the pair math; pairs.cuh the coincident kick, the TPU kernel's dx
+// bias segmented by tile, with a band's tiles counted from the band's start
+// as pallas_step.py:373-386 counts them) with K2's summation structure: the
+// columns are cut into bands of `band` bodies (65536 by default; a multiple
+// of the 128-wide tile), each row's raw acceleration is summed band by band,
+// and the band partials are folded in band order 0..nb-1 before G * m_i is
+// applied.  Under accum "compensated" the tiles of a band are Kahan-folded
+// into the band partial (whose compensation term is dropped at band end, as
+// pallas_step._acc_finish drops it) and the band partials are Kahan-folded
+// into the total (the TPU kernel's two scratch rows, pallas_step.py:460-463).
+// bf16 is storage only (pairs.cuh).
 //
 // Design: two launches.  The TPU kernel carries the cross-band sum in its
 // revisited output block, because its grid runs the bands in order on one
@@ -30,14 +32,17 @@
 // over the bands inside each thread would need no workspace but would give
 // a small row block only M/128 blocks.
 //
-// Bound: the band kernel is compute-bound exactly as K1 is (about 20 FP32
-// operations and one SFU rsqrt per pair, 16 bytes per column body per 128
-// rows).  The fold reads 2 * bands * M compute-type words and writes 2 * M:
-// at N=262144 fp32 with 4 bands that is 8 MiB, a few microseconds at device
-// bandwidth against tens of milliseconds of pair work.
+// Bound: the band kernel runs K1's pair loop and is bound, as K1 is, by
+// instruction issue at the loop's instructions per pair (forces.cu gives
+// the census; tensor cores and TMA do not serve it, for K1's reasons).  The
+// fold reads 2 * bands * M compute-type words and writes 2 * M: at N=262144
+// fp32 with 4 bands that is 8 MiB, a few microseconds at device bandwidth
+// against tens of milliseconds of pair work.
 //
-// Global ids stay 64-bit: gj = col_g0 + b * band + j and gi = row_g0 + i, so
-// the coincident kick is placed right for any band and any block offset.
+// Global ids stay 64-bit: a tile's first column is col_g0 + b * band + j0
+// and a block's first row row_g0 + blockIdx.x * 128, so the tile's bias
+// segment, and with it the kick's sign, is right for any band and any block
+// offset.
 // The ragged last band and tile are filled with zero-mass bodies at the
 // origin and nothing past K is read.
 //
@@ -69,7 +74,7 @@ __global__ void __launch_bounds__(kBlock) band_partials_kernel(
   const T x0 = row_ok ? nbody::to_compute(xi[i]) : T(0);
   const T y0 = row_ok ? nbody::to_compute(yi[i]) : T(0);
   const T r0 = row_ok ? nbody::to_compute(ri[i]) : T(0);
-  const long long gi = row_g0 + i;
+  const long long gi0 = row_g0 + static_cast<int64_t>(blockIdx.x) * kBlock;
   const bool biased = biased_flag != nullptr ? *biased_flag
                                              : biased_default != 0;
   const int64_t j_begin = b * band;
@@ -77,7 +82,7 @@ __global__ void __launch_bounds__(kBlock) band_partials_kernel(
 
   T ax = T(0), ay = T(0);
   nbody::sweep_columns<S, kComp>(xj, yj, mj, rj, j_begin, j_end, col_g0, x0,
-                                 y0, r0, gi, biased, sx, sy, sm, sr, ax, ay);
+                                 y0, r0, gi0, biased, sx, sy, sm, sr, ax, ay);
   if (row_ok) {
     ws[(2 * b) * m + i] = ax;
     ws[(2 * b + 1) * m + i] = ay;

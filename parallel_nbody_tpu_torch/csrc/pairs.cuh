@@ -8,6 +8,32 @@
 // result is rounded to bf16 once, at the store.  So a bf16 launch computes
 // bit for bit what the fp32 launch computes on the upcast inputs.
 //
+// The coincident kick: the TPU kernel's dx bias, segmented by tile
+// (pallas_step.py:26-46, _make_col_sweep at :158-223).  The reference gives
+// a coincident distinct pair (dsqr == 0) the kick mj * sign(gj - gi) / forced
+// along +x, with g the GLOBAL body index.  Adding a bias b to dx makes that
+// pair's term mj * b / (forced * |b|), the kick, with no branch; a self-pair
+// gets b = 0 and stays 0.  For each staged 128-wide column tile the block
+// knows from its rows' global range [gi0, gi0 + 128) and the tile's
+// [gj0, gj0 + 128) where the tile lies, the same for every thread:
+//   - wholly below the rows (every gj < gi):  b = -C;
+//   - wholly above (every gj > gi):           b = +C;
+//   - overlapping:                            b = (gj - gi) * P, the index
+//     difference taken in integers (|gj - gi| < 256, so the float is exact).
+// C and P are pallas_step.py:90-93's by compute type: 2^-26 and 2^-50 in
+// fp32, 2^-40 and 2^-80 in fp64.  The order (xj - xi) + b is the TPU's; with
+// no fast-math flag it is kept, so self-pair and coincident terms round as
+// the Pallas kernel's do.  Against Pallas's 1024-wide tiles the card's
+// segments are finer: a 128-row block overlaps one column tile when
+// row_g0 - col_g0 is a multiple of 128 and two when it is not, so per-pair
+// bias falls on 128 or 256 of a row's columns where Pallas puts it on 1024
+// or 2048, and a pair that Pallas biases per pair may get the constant here.
+// Both are exact kicks for coincident pairs; on any other pair the bias
+// moves dx by at most C, which no dx of magnitude >= 1 feels in fp32.
+//
+// The unbiased variant is its own instantiation with no add; the device-side
+// flag picks between them once per tile, uniformly across the grid.
+//
 // Accumulation.  With kComp = false each pair term is added straight into
 // the row accumulator.  With kComp = true each kBlock-wide j-tile is summed
 // into a fresh partial, and the partial is Kahan-folded into the row sum
@@ -28,14 +54,17 @@ constexpr int kBlock = 128;
 
 template <typename T> struct Consts;
 template <> struct Consts<float> {
-  // De-NaN floor inside the rsqrt (pallas_step.py::_EPS), and the
-  // denominator floor of the kick (forces.py::_DENOM_FLOOR).
+  // De-NaN floor inside the rsqrt (pallas_step.py::_EPS), and the dx bias:
+  // the constant of non-overlapping tiles and the per-pair scale
+  // (_CBIAS, _PBIAS).
   static constexpr float eps = 1e-36f;
-  static constexpr float denom_floor = 1e-30f;
+  static constexpr float cbias = 0x1p-26f;
+  static constexpr float pbias = 0x1p-50f;
 };
 template <> struct Consts<double> {
   static constexpr double eps = 1e-200;
-  static constexpr double denom_floor = 1e-30;
+  static constexpr double cbias = 0x1p-40;
+  static constexpr double pbias = 0x1p-80;
 };
 
 template <typename S> struct ComputeOf { using type = S; };
@@ -53,7 +82,20 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(double* p, double v) { *p = v; }
 
-__device__ __forceinline__ float rsqrt_t(float v) { return rsqrtf(v); }
+// The bare MUFU reciprocal square root.  rsqrtf compiles, without -ftz, to
+// the same MUFU.RSQ behind a test for inputs below FLT_MIN (1.18e-38) that
+// scales them by 2^24 first and the result by 2^12 after.  The pair loop's
+// argument is forced^2 * dsqr + eps with forced^2 * dsqr >= 0 and
+// eps = 1e-36 > FLT_MIN, so it is never below FLT_MIN: it is normal, or
+// +inf when a far padding pair overflows (rsqrt gives +0 either way), or
+// NaN only from NaN inputs (NaN either way).  On every such argument the
+// wrapper does not fire and rsqrt.approx.ftz.f32 returns rsqrtf's bits.
+// No other operation changes: there is no global -ftz.
+__device__ __forceinline__ float rsqrt_t(float v) {
+  float r;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
 __device__ __forceinline__ double rsqrt_t(double v) { return rsqrt(v); }
 
 template <typename T>
@@ -64,14 +106,24 @@ __device__ __forceinline__ void kahan_add(T& acc, T& comp, T val) {
   acc = t;
 }
 
-template <typename T, bool kBiased>
+// What a tile's pair loop adds to dx.
+enum class Bias { kNone, kConst, kPerPair };
+
+// One staged tile against one row.  kConst adds `c` to every dx; kPerPair
+// adds (d + t) * P, where d = gj0 - gi is the tile's first column minus the
+// row (global ids), so d + t = gj - gi.
+template <typename T, Bias kBias>
 __device__ __forceinline__ void sweep_tile(
     const T* __restrict__ sx, const T* __restrict__ sy,
-    const T* __restrict__ sm, const T* __restrict__ sr,
-    T xi, T yi, T ri, long long gi, long long gj0, T& ax, T& ay) {
+    const T* __restrict__ sm, const T* __restrict__ sr, T xi, T yi, T ri,
+    T c, int d, T& ax, T& ay) {
 #pragma unroll 8
   for (int t = 0; t < kBlock; ++t) {
-    const T dx = sx[t] - xi;
+    T dx = sx[t] - xi;
+    if constexpr (kBias == Bias::kConst) dx = dx + c;
+    if constexpr (kBias == Bias::kPerPair) {
+      dx = dx + static_cast<T>(d + t) * Consts<T>::pbias;
+    }
     const T dy = sy[t] - yi;
     const T dsqr = dx * dx + dy * dy;
     const T mind = ri + sr[t];
@@ -79,28 +131,45 @@ __device__ __forceinline__ void sweep_tile(
     const T s = sm[t] * rsqrt_t(forced * forced * dsqr + Consts<T>::eps);
     ax += s * dx;
     ay += s * dy;
-    if (kBiased && dsqr == T(0)) {
-      const long long gj = gj0 + t;
-      if (gj != gi) {
-        const T sgn = gj > gi ? T(1) : T(-1);
-        ax += sm[t] * sgn / max(forced, T(Consts<T>::denom_floor));
-      }
-    }
   }
 }
 
-// Raw acceleration (before G * m_i) of row body (xi, yi, ri) with global id
-// gi from columns [j_begin, j_end) of the column block, whose global ids
-// start at col_g0.  Every thread of the block calls it with the same range,
-// since the tiles are staged cooperatively.  Columns past j_end are staged
-// as zero-mass bodies at the origin, whose terms are exactly 0.
+// The tile sweep with the tile's segment of the dx bias: none when
+// unbiased; else -C or +C when the tile [gj0, gj0 + kBlock) lies wholly
+// below or above the block's rows [gi0, gi0 + kBlock), and the per-pair bias
+// where they overlap.  Every operand of the choice is the same across the
+// block.
+template <typename T>
+__device__ __forceinline__ void sweep_segment(
+    const T* __restrict__ sx, const T* __restrict__ sy,
+    const T* __restrict__ sm, const T* __restrict__ sr, T xi, T yi, T ri,
+    bool biased, long long gi0, long long gj0, T& ax, T& ay) {
+  const long long d0 = gj0 - gi0;
+  if (!biased) {
+    sweep_tile<T, Bias::kNone>(sx, sy, sm, sr, xi, yi, ri, T(0), 0, ax, ay);
+  } else if (d0 > -kBlock && d0 < kBlock) {
+    const int d = static_cast<int>(d0) - static_cast<int>(threadIdx.x);
+    sweep_tile<T, Bias::kPerPair>(sx, sy, sm, sr, xi, yi, ri, T(0), d, ax,
+                                  ay);
+  } else {
+    const T c = d0 < 0 ? -Consts<T>::cbias : Consts<T>::cbias;
+    sweep_tile<T, Bias::kConst>(sx, sy, sm, sr, xi, yi, ri, c, 0, ax, ay);
+  }
+}
+
+// Raw acceleration (before G * m_i) of row body (xi, yi, ri) of a block
+// whose rows have global ids gi0 + threadIdx.x, from columns
+// [j_begin, j_end) of the column block, whose global ids start at col_g0.
+// Every thread of the block calls it with the same range, since the tiles
+// are staged cooperatively.  Columns past j_end are staged as zero-mass
+// bodies at the origin, whose terms are exactly 0.
 template <typename S, bool kComp>
 __device__ __forceinline__ void sweep_columns(
     const S* __restrict__ xj, const S* __restrict__ yj,
     const S* __restrict__ mj, const S* __restrict__ rj, int64_t j_begin,
     int64_t j_end, int64_t col_g0, typename ComputeOf<S>::type xi,
     typename ComputeOf<S>::type yi, typename ComputeOf<S>::type ri,
-    long long gi, bool biased, typename ComputeOf<S>::type* sx,
+    long long gi0, bool biased, typename ComputeOf<S>::type* sx,
     typename ComputeOf<S>::type* sy, typename ComputeOf<S>::type* sm,
     typename ComputeOf<S>::type* sr, typename ComputeOf<S>::type& ax,
     typename ComputeOf<S>::type& ay) {
@@ -123,17 +192,11 @@ __device__ __forceinline__ void sweep_columns(
     const long long gj0 = col_g0 + j0;
     if (kComp) {
       T px = T(0), py = T(0);
-      if (biased) {
-        sweep_tile<T, true>(sx, sy, sm, sr, xi, yi, ri, gi, gj0, px, py);
-      } else {
-        sweep_tile<T, false>(sx, sy, sm, sr, xi, yi, ri, gi, gj0, px, py);
-      }
+      sweep_segment<T>(sx, sy, sm, sr, xi, yi, ri, biased, gi0, gj0, px, py);
       kahan_add(ax, cx, px);
       kahan_add(ay, cy, py);
-    } else if (biased) {
-      sweep_tile<T, true>(sx, sy, sm, sr, xi, yi, ri, gi, gj0, ax, ay);
     } else {
-      sweep_tile<T, false>(sx, sy, sm, sr, xi, yi, ri, gi, gj0, ax, ay);
+      sweep_segment<T>(sx, sy, sm, sr, xi, yi, ri, biased, gi0, gj0, ax, ay);
     }
     __syncthreads();
   }

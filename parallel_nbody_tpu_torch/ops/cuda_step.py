@@ -9,9 +9,16 @@ the kernels and their design):
 
 plus, when ``biased``, the reference's atan2(0, 0) kick
 ``m_j * sign(gj - gi) / forced`` along +x for coincident distinct pairs
-(global ids ``row_g0 + i``, ``col_g0 + j``).  ``biased=False`` drops the kick
-and is only correct when no two distinct massive bodies coincide —
-``forces_coincident_dispatch`` chooses it from ``any_coincident``.
+(global ids ``row_g0 + i``, ``col_g0 + j``), through the TPU kernel's dx
+bias segmented by tile (``pallas_step.py:26-46``): ``dx = (xj - xi) + b``
+with ``b = -C`` on column tiles wholly below the row block, ``+C`` wholly
+above it and ``(gj - gi) * P`` on tiles that overlap it, so a coincident
+pair's term is the kick and a self-pair's is 0.  The kernels' geometry is
+128-row blocks against 128-wide column tiles; the plain versions take it as
+``row_block`` and ``tile``, so they also run at Pallas's 1024/1024.
+``biased=False`` drops the bias and is only correct when no two distinct
+massive bodies coincide — ``forces_coincident_dispatch`` chooses it from
+``any_coincident``.
 
 - ``block_forces`` (K1, csrc/forces.cu; Pallas ``_force_kernel``) sums each
   row over all columns in 128-wide tiles.
@@ -56,12 +63,14 @@ _COMPUTE = {torch.bfloat16: torch.float32, torch.float32: torch.float32,
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32",
            torch.float64: "f64"}
 # De-NaN floor inside the rsqrt (pallas_step.py::_EPS / _EPS64): it keeps
-# self-pairs and coincident pairs at 0 * finite instead of 0 * inf.  Real
-# pairs have forced^2 * dsqr >= 16 * dsqr, far above it.
+# self-pairs at 0 * finite instead of 0 * inf.  Real pairs have
+# forced^2 * dsqr >= 16 * dsqr, far above it.
 _EPS = {torch.float32: 1e-36, torch.float64: 1e-200}
-# Denominator floor of the kick (forces.py::_DENOM_FLOOR): only zero-radius
-# padding pairs have forced < 4.
-_DENOM_FLOOR = 1e-30
+# The dx bias (pallas_step.py:90-93) by compute dtype: the constant C of
+# column tiles wholly below or above the row block and the per-pair scale P
+# of overlapping tiles, powers of two so that (gj - gi) * P is exact.
+_BIAS = {torch.float32: (2.0 ** -26, 2.0 ** -50),
+         torch.float64: (2.0 ** -40, 2.0 ** -80)}
 # Elements per (rows, K) intermediate of the plain versions: 16M elements is
 # 64 MiB in fp32, so N=65536 fits on the card 256 rows at a time.
 _CHUNK_ELEMS = 1 << 24
@@ -69,12 +78,12 @@ _CHUNK_ELEMS = 1 << 24
 _MAX_BANDS = 65535
 
 
-def _flag_factor(biased, dtype):
-    """None for ``biased=False``; else a multiplier for the kick (1.0, or the
-    device-side flag as a 0-d tensor of ``dtype``)."""
+def _flag(biased):
+    """None for ``biased=False``; else True, or the device-side 0-d bool
+    flag tensor."""
     if isinstance(biased, torch.Tensor):
-        return biased.to(dtype)
-    return 1.0 if biased else None
+        return biased
+    return True if biased else None
 
 
 def band_width(k: int, band: int, tile: int = TILE) -> int:
@@ -93,8 +102,26 @@ def _kahan_add(acc, comp, val):
     return t, (t - acc) - y
 
 
+def dx_bias(rows: range, k: int, *, row_g0: int, col_g0: int,
+            row_block: int, tile: int, dtype, device=None):
+    """The segmented dx bias of rows ``rows`` (block-local) against columns
+    0..k-1 of the column block, as a (len(rows), k) tensor of ``dtype``:
+    ``-C`` where the column's ``tile``-wide tile lies wholly below the row's
+    ``row_block``-row block (every global column id below every row id),
+    ``+C`` wholly above, ``(gj - gi) * P`` where they overlap."""
+    cbias, pbias = _BIAS[dtype]
+    i = torch.arange(rows.start, rows.stop, device=device)[:, None]
+    j = torch.arange(k, device=device)[None, :]
+    gi0 = row_g0 + i - i % row_block  # first row of the row's block
+    gj0 = col_g0 + j - j % tile  # first column of the column's tile
+    per_pair = ((col_g0 + j) - (row_g0 + i)).to(dtype) * pbias
+    const = torch.where(gj0 < gi0, -cbias, cbias).to(dtype)
+    overlap = (gj0 + tile > gi0) & (gj0 < gi0 + row_block)
+    return torch.where(overlap, per_pair, const)
+
+
 def _tile_partials(xi, yi, ri, xj, yj, mj, rj, *, row_g0, col_g0, flag,
-                   tile):
+                   tile, row_block):
     """Per-tile partial sums of each row's raw acceleration (before
     G * m_i): two (M, ceil(K / tile)) tensors in the inputs' dtype.  Rows
     are chunked so the (rows, K) intermediates stay bounded on any
@@ -103,27 +130,24 @@ def _tile_partials(xi, yi, ri, xj, yj, mj, rj, *, row_g0, col_g0, flag,
     eps = _EPS[dtype]
     m, k = xi.shape[0], xj.shape[0]
     nt = -(-k // tile)
-    gj = col_g0 + torch.arange(k, device=dev)
-    zero = torch.zeros((), dtype=dtype, device=dev)
     px = torch.zeros((m, nt), dtype=dtype, device=dev)
     py = torch.zeros((m, nt), dtype=dtype, device=dev)
     chunk = max(1, _CHUNK_ELEMS // max(k, 1))
     for r0 in range(0, m if k else 0, chunk):
         rows = slice(r0, min(m, r0 + chunk))
         dx = xj[None, :] - xi[rows, None]
+        if flag is not None:
+            biased = dx + dx_bias(range(rows.start, rows.stop), k,
+                                  row_g0=row_g0, col_g0=col_g0,
+                                  row_block=row_block, tile=tile,
+                                  dtype=dtype, device=dev)
+            dx = biased if flag is True else torch.where(flag, biased, dx)
         dy = yj[None, :] - yi[rows, None]
         dsqr = dx * dx + dy * dy
         mind = ri[rows, None] + rj[None, :]
         forced = torch.maximum(dsqr, mind * mind)
         s = mj[None, :] * torch.rsqrt(forced * forced * dsqr + eps)
-        fx = s * dx
-        if flag is not None:
-            gi = row_g0 + torch.arange(r0, rows.stop, device=dev)
-            sgn = torch.sign(gj[None, :] - gi[:, None]).to(dtype)
-            kick = torch.where(dsqr == 0, mj[None, :] * sgn
-                               / torch.clamp_min(forced, _DENOM_FLOOR), zero)
-            fx = fx + kick * flag
-        fy = s * dy
+        fx, fy = s * dx, s * dy
         pad = (0, nt * tile - k)
         px[rows] = torch.nn.functional.pad(fx, pad).view(-1, nt, tile).sum(2)
         py[rows] = torch.nn.functional.pad(fy, pad).view(-1, nt, tile).sum(2)
@@ -153,17 +177,19 @@ def _upcast(tensors):
 
 def block_forces_reference(cfg: SimConfig, xi, yi, mi, ri, xj, yj, mj, rj,
                            *, row_g0: int = 0, col_g0: int = 0, biased,
-                           accum: str = "plain", tile: int = TILE):
+                           accum: str = "plain", tile: int = TILE,
+                           row_block: int = TILE):
     """Plain PyTorch version of K1: each ``tile``-wide slice of a row is
     summed, and the slices are folded in order (with Kahan under
     ``compensated``).  ``biased`` is a bool or a 0-d bool tensor (read
-    without a host sync)."""
+    without a host sync); the bias segments follow ``row_block``-row blocks
+    against ``tile``-wide column tiles."""
     store = xi.dtype
     xi, yi, mi, ri, xj, yj, mj, rj = _upcast((xi, yi, mi, ri, xj, yj, mj,
                                               rj))
     px, py = _tile_partials(xi, yi, ri, xj, yj, mj, rj, row_g0=row_g0,
-                            col_g0=col_g0,
-                            flag=_flag_factor(biased, xi.dtype), tile=tile)
+                            col_g0=col_g0, flag=_flag(biased), tile=tile,
+                            row_block=row_block)
     ax, ay = _fold(px, py, accum)
     gmi = mi * cfg.gravity
     return (ax * gmi).to(store), (ay * gmi).to(store)
@@ -173,15 +199,17 @@ def block_forces_streamed_reference(cfg: SimConfig, xi, yi, mi, ri, xj, yj,
                                     mj, rj, *, row_g0: int = 0,
                                     col_g0: int = 0,
                                     band: int = STREAM_BAND, biased,
-                                    accum: str = "plain", tile: int = TILE):
+                                    accum: str = "plain", tile: int = TILE,
+                                    row_block: int = TILE):
     """Plain PyTorch version of K2: per band, K1's tile partials folded into
     a band partial (the compensation term dropped at band end); then the
     band partials folded in band order (with Kahan under ``compensated``);
-    then ``G * m_i``."""
+    then ``G * m_i``.  A band's bias segments count its tiles from the
+    band's start."""
     store = xi.dtype
     xi, yi, mi, ri, xj, yj, mj, rj = _upcast((xi, yi, mi, ri, xj, yj, mj,
                                               rj))
-    flag = _flag_factor(biased, xi.dtype)
+    flag = _flag(biased)
     k = xj.shape[0]
     band = band_width(k, band, tile)
     bx, by = [], []
@@ -189,7 +217,7 @@ def block_forces_streamed_reference(cfg: SimConfig, xi, yi, mi, ri, xj, yj,
         cols = slice(b0, min(k, b0 + band))
         px, py = _tile_partials(xi, yi, ri, xj[cols], yj[cols], mj[cols],
                                 rj[cols], row_g0=row_g0, col_g0=col_g0 + b0,
-                                flag=flag, tile=tile)
+                                flag=flag, tile=tile, row_block=row_block)
         fx, fy = _fold(px, py, accum)
         bx.append(fx)
         by.append(fy)

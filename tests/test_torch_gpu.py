@@ -28,7 +28,9 @@ from parallel_nbody_tpu_torch.models.engine import run
 from parallel_nbody_tpu_torch.ops import cuda_step
 from parallel_nbody_tpu_torch.state import init_state
 from parallel_nbody_tpu_torch.utils import ppm
-from torch_cases import BLOCK_CASES, KICK, blocks, glibc_like, probe_inputs
+from torch_cases import (BLOCK_CASES, KICK, KICK_PLACEMENTS, SEGMENT_CASES,
+                         blocks, glibc_like, kick_case, probe_inputs,
+                         segment_blocks)
 
 TOL = {"float32": 1e-5, "float64": 1e-12}
 
@@ -242,6 +244,84 @@ def test_bf16_kernel_is_fp32_kernel_rounded_once(kernel, biased, accum,
     for g, w in zip(got, want):
         assert g.dtype == torch.bfloat16
         assert torch.equal(g, w.to(torch.bfloat16))
+
+
+# ---------------------------------------------------------------------------
+# the segmented dx bias
+# ---------------------------------------------------------------------------
+
+SEGMENT_CARD_CASES = (tuple("kick_" + p for p in sorted(KICK_PLACEMENTS))
+                      + tuple("segments_" + c for c in sorted(SEGMENT_CASES)))
+
+
+def _segment_case(case):
+    """(rows, cols, row_g0, col_g0, band) of a coincident pair in each bias
+    segment (KICK_PLACEMENTS, offsets 37 and 90 in the misaligned ones), or
+    the N=2300 set with pairs in every segment, its rows from 0 or from
+    600 (not a multiple of 128)."""
+    if case.startswith("kick_"):
+        rows, cols, g0, c0, _ = kick_case(case[len("kick_"):])
+        return rows, cols, g0, c0, 256
+    rows, cols, g0, c0 = segment_blocks(case[len("segments_"):])
+    return rows, cols, g0, c0, 1024
+
+
+@pytest.mark.parametrize("accum", ["plain", "compensated"])
+@pytest.mark.parametrize("dtype", ["float32", "float64", "bfloat16"])
+@pytest.mark.parametrize("kernel", ["block_forces", "block_forces_streamed"])
+@pytest.mark.parametrize("case", SEGMENT_CARD_CASES)
+def test_segmented_bias_kernel_matches_reference(case, kernel, dtype, accum,
+                                                 dev):
+    """The biased kernels against their plain versions where the bias
+    segments matter.  fp32/fp64 within TOL; bf16 within TOL plus one bf16
+    rounding (2^-7 of the value), since both round their fp32 sums once."""
+    rows, cols, g0, c0, band = _segment_case(case)
+    rows, cols = _on(rows, dtype, dev), _on(cols, dtype, dev)
+    cfg = SimConfig(force_mode="fast", dtype=dtype, kernel="cuda")
+    kw = dict(row_g0=g0, col_g0=c0, biased=True, accum=accum)
+    if kernel == "block_forces_streamed":
+        kw["band"] = band
+    fn = getattr(cuda_step, kernel)
+    before = fn.launches
+    got = fn(cfg, *rows, *cols, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = getattr(cuda_step, kernel + "_reference")(cfg, *rows, *cols, **kw)
+    scale = max(float(w.float().abs().max()) for w in want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        g, w = g.double().cpu().numpy(), w.double().cpu().numpy()
+        tol = TOL.get(dtype, TOL["float32"]) * scale
+        if dtype == "bfloat16":
+            tol = tol + 2.0 ** -7 * np.abs(w)
+        assert (np.abs(g - w) <= tol).all()
+    if case.startswith("kick_"):
+        _, _, _, _, (ia, ib) = kick_case(case[len("kick_"):])
+        xf = got[0].double().cpu().numpy()
+        rtol = 2.0 ** -7 if dtype == "bfloat16" else 1e-6
+        np.testing.assert_allclose(xf[[ia, ib]], [KICK, -KICK], rtol=rtol)
+
+
+@pytest.mark.parametrize("accum", ["plain", "compensated"])
+@pytest.mark.parametrize("kernel", ["block_forces", "block_forces_streamed"])
+def test_fp32_unbiased_kernel_matches_fp64_pair_terms(kernel, accum, dev):
+    """The fp32 unbiased kernel (the bare MUFU rsqrt) against the same
+    bias-free pair terms evaluated in float64 on the same fp32 inputs:
+    within chip_smoke.py's 2e-5 * max|F| for fp32 sums with rsqrtf (2 ulp
+    per term)."""
+    b = _on(glibc_like(4097, 26, ((1, 2), (100, 4000))), "float32", dev)
+    cfg = SimConfig(force_mode="fast", dtype="float32", kernel="cuda")
+    kw = dict(band=1024) if kernel == "block_forces_streamed" else {}
+    got = getattr(cuda_step, kernel)(cfg, *b, *b, biased=False, accum=accum,
+                                     **kw)
+    b64 = [t.double() for t in b]
+    want = getattr(cuda_step, kernel + "_reference")(
+        cfg.replace(dtype="float64"), *b64, *b64, biased=False, accum=accum,
+        **kw)
+    scale = max(float(w.abs().max()) for w in want)
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        assert float((g.double() - w).abs().max()) <= 2e-5 * scale
 
 
 def test_cuda_forces_dispatch_on_card(dev, monkeypatch):

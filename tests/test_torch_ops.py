@@ -12,10 +12,15 @@ Tolerances and why:
     (tests/test_torch_engine.py).
   - dense fast forces (fp64): same pair terms, rows summed in another order:
     1e-14 * max|F|.
-  - block_forces_reference against pallas_block_forces: the Pallas kernel
-    adds the coincident kick through a dx bias (which moves every biased dx
-    by about 1 ulp) and sums tile by tile, so atol = 1e-5 * max|F| in fp32
-    and 1e-12 * max|F| in fp64.
+  - block_forces_reference against pallas_block_forces: both add the
+    coincident kick through the segmented dx bias, but at the kernels'
+    geometry (128-row blocks, 128-wide tiles) a pair may get the constant
+    bias where Pallas's 1024-wide tiles give it the per-pair one (in fp64
+    every dx feels the difference), and the tiles are summed in another
+    order, so atol = 1e-5 * max|F| in fp32 and 1e-12 * max|F| in fp64.  At
+    Pallas's own geometry only the order differs: 2e-6 and 1e-14.
+  - the kick of one coincident pair in each bias segment: rtol 1e-6 (the
+    kick is m_j / forced to a few ulps of the rsqrt).
 """
 
 import jax
@@ -32,7 +37,9 @@ from parallel_nbody_tpu_torch.config import SimConfig
 from parallel_nbody_tpu_torch.ops import _build, cuda_step
 from parallel_nbody_tpu_torch.ops import forces as tforces
 from parallel_nbody_tpu_torch.ops import integrate as tintegrate
-from torch_cases import BLOCK_CASES, KICK, bf16_ulps, blocks, glibc_like
+from torch_cases import (BLOCK_CASES, KICK, KICK_PLACEMENTS, SEGMENT_CASES,
+                         bf16_ulps, blocks, glibc_like, kick_case,
+                         segment_blocks)
 
 torch.set_num_threads(1)
 
@@ -275,6 +282,102 @@ def test_block_forces_two_body_kick(dtype):
     # kernel is only chosen when no such pair exists).
     xf, yf = cuda_step.block_forces(cfg, *b, *b, biased=False)
     np.testing.assert_array_equal(_np(xf), [0.0, 0.0])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("case", sorted(SEGMENT_CASES))
+def test_block_forces_reference_at_pallas_geometry(case, dtype):
+    """With 1024-row blocks and 1024-wide tiles the plain version gives
+    every pair the Pallas kernel's own bias, coincident pairs in tiles
+    below, above and overlapping (two overlapping tiles per row block when
+    the rows start at 600), so only the summation order differs: atol
+    2e-6 * max|F| in fp32 and 1e-14 in fp64 (measured on the CPU: 2.9e-7
+    and 4.1e-16; at the kernels' 128/128 geometry fp64 differs by 1.3e-13,
+    the other segments' bias, which the 1e-12 above absorbs)."""
+    rows, cols, g0, c0 = segment_blocks(case)
+    rows = [a.astype(dtype) for a in rows]
+    cols = [a.astype(dtype) for a in cols]
+    want = pallas_step.pallas_block_forces(
+        JaxConfig(force_mode="fast", dtype=dtype), *rows, *cols,
+        row_g0=g0, col_g0=c0, tile_i=1024, tile_j=1024, interpret=True,
+        biased=True)
+    cfg = SimConfig(force_mode="fast", dtype=dtype, kernel="cuda")
+    got = cuda_step.block_forces_reference(
+        cfg, *map(_t, rows), *map(_t, cols), row_g0=g0, col_g0=c0,
+        biased=True, tile=1024, row_block=1024)
+    rel = 2e-6 if dtype == "float32" else 1e-14
+    scale = max(np.abs(np.asarray(w)).max() for w in want)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(_np(g), np.asarray(w), rtol=0,
+                                   atol=rel * scale)
+
+
+def _segment(bias, cbias):
+    return {-cbias: "below", cbias: "above"}.get(bias, "pair")
+
+
+def test_kick_placements_cover_every_segment():
+    """Each placement puts the pair's two terms where KICK_PLACEMENTS says:
+    per-pair bias (|b| < C, and 0 for no pair), -C below, +C above."""
+    cbias, pbias = cuda_step._BIAS[torch.float64]
+    for place, (pair, _, _, want) in KICK_PLACEMENTS.items():
+        rows, cols, g0, c0, (ia, ib) = kick_case(place)
+        bias = _np(cuda_step.dx_bias(range(len(rows[0])), len(cols[0]),
+                                     row_g0=g0, col_g0=c0, row_block=128,
+                                     tile=128, dtype=torch.float64))
+        terms = (bias[ia, pair[1] - c0], bias[ib, pair[0] - c0])
+        assert tuple(_segment(b, cbias) for b in terms) == want, place
+        for b, sign in zip(terms, (1, -1)):
+            assert np.sign(b) == sign
+            if _segment(b, cbias) == "pair":
+                assert b == sign * (pair[1] - pair[0]) * pbias
+    # With misaligned offsets a row block overlaps two column tiles.
+    rows, cols, g0, c0, _ = kick_case("misaligned")
+    bias = _np(cuda_step.dx_bias(range(128, 256), len(cols[0]), row_g0=g0,
+                                 col_g0=c0, row_block=128, tile=128,
+                                 dtype=torch.float64))
+    per_pair = np.abs(bias) < cbias
+    assert per_pair.all(0).sum() == 256 and per_pair.sum() == 128 * 256
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("place", sorted(KICK_PLACEMENTS))
+def test_block_forces_reference_kick_in_each_segment(place, dtype):
+    rows, cols, g0, c0, (ia, ib) = kick_case(place)
+    cfg = SimConfig(force_mode="fast", dtype=dtype, kernel="cuda")
+    xf, yf = cuda_step.block_forces_reference(
+        cfg, *(_t(a, dtype) for a in rows), *(_t(a, dtype) for a in cols),
+        row_g0=g0, col_g0=c0, biased=True)
+    xf, yf = _np(xf), _np(yf)
+    np.testing.assert_allclose(xf[[ia, ib]], [KICK, -KICK], rtol=1e-6)
+    assert np.count_nonzero(xf) == 2 and not yf.any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_bias_on_non_coincident_pairs_within_bound(dtype):
+    """No two bodies coincide: the bias only perturbs.  It moves each dx by
+    at most C (2^-26 in fp32, 2^-40 in fp64; the per-pair bias is at most
+    255 * P, far below).  With radii >= 1 (forced >= 4) and positions on
+    integer pixels (|d| >= 1), a pair term m_j * (dx, dy) / (forced * |d|)
+    moves by at most m_j / 4 per unit of dx, so each force moves by at most
+    |G m_i| * C / 4 * sum_j m_j.  (Measured: 7.4e-5 of that bound in fp64,
+    where every dx moves; 4.0e-5 in fp32, where only pairs with dx == 0
+    move, since C is below half an ulp of any |dx| >= 1.)"""
+    x, y, m, r = glibc_like(400, 40, ())
+    assert not bool(cuda_step.any_coincident(_t(x), _t(y), _t(m)))
+    b = [_t(a, dtype) for a in (x, y, m, r)]
+    cfg = SimConfig(force_mode="fast", dtype=dtype, kernel="cuda")
+    cbias = cuda_step._BIAS[b[0].dtype][0]
+    bias = _np(cuda_step.dx_bias(range(400), 400, row_g0=0, col_g0=0,
+                                 row_block=128, tile=128, dtype=b[0].dtype))
+    assert np.abs(bias).max() == cbias
+    on = cuda_step.block_forces_reference(cfg, *b, *b, biased=True)
+    off = cuda_step.block_forces_reference(cfg, *b, *b, biased=False)
+    bound = np.abs(cfg.gravity * m) * cbias / 4 * m.sum()
+    for u, v in zip(on, off):
+        diff = np.abs(_np(u).astype(np.float64) - _np(v))
+        assert (diff <= bound).all()
+    assert any((_np(u) != _np(v)).any() for u, v in zip(on, off))
 
 
 def test_block_forces_device_flag_equals_bool():

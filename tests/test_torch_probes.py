@@ -299,3 +299,40 @@ def test_sass_census_counts_the_inner_loop():
     assert sass_census.kernel_name(
         "_ZN41_GLOBAL__N__7f641550_9_forces_cu_a6310b9419block_forces_"
         "kernelIfLb0EEEvPKT_") == "block_forces_kernel<fLb0>"
+
+
+def _force_listing(loops):
+    """A listing of one K1 instantiation whose inner loops hold the given
+    opcodes (each loop also gets an LDS.128 and its backward branch)."""
+    lines = ["\tFunction : _ZN41_GLOBAL__N__7f641550_9_forces_cu_a6310b94"
+             "19block_forces_kernelIfLb0EEEvPKT_"]
+    addr = 0
+    for body in loops:
+        start = addr
+        for op in ["LDS.128 R8, [UR4]"] + body + ["@P1 BRA 0x%x" % start]:
+            lines.append("        /*%04x*/ %s ;" % (addr, op))
+            addr += 0x10
+        lines.append("        /*%04x*/ BAR.SYNC.DEFER_BLOCKING 0x0 ;" % addr)
+        addr += 0x10
+    return "\n".join(lines)
+
+
+def test_sass_census_tells_the_force_loops_apart():
+    """K1's three pair loops: the one with the int-to-float conversion is
+    the per-pair bias; of the others the longer adds the constant bias."""
+    from parallel_nbody_tpu_torch.benchmarks import sass_census
+    per_pair = ["I2FP.F32.S32 R3, R3", "FADD R9, -R3, R9",
+                "FFMA R9, R3, R4, R9", "MUFU.RSQ R4, R7"]
+    const = ["FADD R9, -R3, R9", "FADD R9, R9, R5", "MUFU.RSQ R4, R7"]
+    unbiased = ["FADD R9, -R3, R9", "MUFU.RSQ R4, R7"]
+    rows = sass_census.census(_force_listing([const, per_pair, unbiased]))
+    roles = sass_census.loop_roles(rows)
+    assert [roles[r[0], r[1]] for r in rows] == [
+        "constant bias", "per-pair bias", "unbiased"]
+    assert [sass_census.instr_per_pair(r) for r in rows] == [
+        5 / 8, 6 / 8, 4 / 8]
+    assert "per-pair bias" in sass_census.format_row(rows[1], "per-pair bias")
+    # Two loops of one length, or no conversion: no roles.
+    for loops in ([unbiased, unbiased, per_pair], [unbiased, const]):
+        assert sass_census.loop_roles(
+            sass_census.census(_force_listing(loops))) == {}

@@ -6,10 +6,12 @@ port's K1/K2 dispatch against the JAX package's.
 
 Tolerances and why:
   - plain versions against the Pallas kernels (fp32/fp64, both accum
-    modes): the Pallas kernels add the coincident kick through a dx bias
-    (which moves every biased dx by about 1 ulp) and sum each tile in
-    another order, so atol = 1e-5 * max|F| in fp32 and 1e-12 * max|F| in
-    fp64, as tests/test_torch_ops.py holds K1.
+    modes): both add the coincident kick through the segmented dx bias,
+    at other tile geometries, and sum each tile in another order, so
+    atol = 1e-5 * max|F| in fp32 and 1e-12 * max|F| in fp64, as
+    tests/test_torch_ops.py holds K1; at Pallas's own geometry 2e-6 and
+    1e-14.
+  - the kick of one coincident pair in each bias segment: rtol 1e-6.
   - magnitude-spread case: the bounds of tests/test_accum.py (plain error
     > 5e-7, compensated < 3e-7, relative to the exact sum).
   - bf16 storage: the plain versions on bf16 inputs are bit-equal to their
@@ -31,7 +33,9 @@ from parallel_nbody_tpu.config import SimConfig as JaxConfig
 from parallel_nbody_tpu.ops import pallas_step
 from parallel_nbody_tpu_torch.config import SimConfig
 from parallel_nbody_tpu_torch.ops import cuda_step
-from torch_cases import BLOCK_CASES, KICK, bf16_ulps, blocks, glibc_like
+from torch_cases import (BLOCK_CASES, KICK, KICK_PLACEMENTS, SEGMENT_CASES,
+                         bf16_ulps, blocks, glibc_like, kick_case,
+                         segment_blocks)
 
 torch.set_num_threads(1)
 
@@ -121,6 +125,42 @@ def test_streamed_two_body_kick(accum):
                                              accum=accum)
     np.testing.assert_allclose(_np(xf), [KICK, -KICK], rtol=1e-6)
     np.testing.assert_allclose(_np(yf), [0.0, 0.0])
+
+
+@pytest.mark.parametrize("band", [1024, 2048])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("case", sorted(SEGMENT_CASES))
+def test_streamed_reference_at_pallas_geometry(case, dtype, band):
+    """K2's plain version at the Pallas geometry (1024-row blocks, 1024-wide
+    tiles counted from each band's start) against the Pallas streamed kernel
+    at tile_i = tile_j = 1024: the same bias on every pair, so only the
+    summation order differs (tolerances of
+    test_torch_ops.test_block_forces_reference_at_pallas_geometry)."""
+    rows, cols, g0, c0 = segment_blocks(case)
+    rows = [a.astype(dtype) for a in rows]
+    cols = [a.astype(dtype) for a in cols]
+    want = pallas_step.pallas_block_forces_streamed(
+        JaxConfig(force_mode="fast", dtype=dtype), *rows, *cols,
+        row_g0=g0, col_g0=c0, tile_i=1024, tile_j=1024, band=band,
+        interpret=True, biased=True)
+    got = cuda_step.block_forces_streamed_reference(
+        _cfg(dtype), *map(_t, rows), *map(_t, cols), row_g0=g0, col_g0=c0,
+        band=band, biased=True, tile=1024, row_block=1024)
+    _assert_close_to_max(got, want, 2e-6 if dtype == "float32" else 1e-14)
+
+
+@pytest.mark.parametrize("band", [128, 256])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("place", sorted(KICK_PLACEMENTS))
+def test_streamed_reference_kick_in_each_segment(place, dtype, band):
+    rows, cols, g0, c0, (ia, ib) = kick_case(place)
+    xf, yf = cuda_step.block_forces_streamed_reference(
+        _cfg(dtype), *(_t(a, dtype) for a in rows),
+        *(_t(a, dtype) for a in cols), row_g0=g0, col_g0=c0, band=band,
+        biased=True)
+    xf, yf = _np(xf), _np(yf)
+    np.testing.assert_allclose(xf[[ia, ib]], [KICK, -KICK], rtol=1e-6)
+    assert np.count_nonzero(xf) == 2 and not yf.any()
 
 
 def test_streamed_kick_across_bands():

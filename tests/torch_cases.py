@@ -54,6 +54,59 @@ def blocks(case):
     raise ValueError(case)
 
 
+# Blocks of one N=2300 glibc-like set for the Pallas geometry (1024-row
+# blocks, 1024-wide tiles): case -> (row_g0, col_g0), rows and columns
+# running to the end of the set.  Coincident pairs (global ids) put the kick
+# in every segment of the dx bias: with rows from 0, (5, 1900) and
+# (1000, 1050) in a tile below and a tile above, (700, 900) and (1100, 1500)
+# in the overlapping tile; with rows from 600 each row block overlaps two
+# tiles, which hold (1000, 1050), (700, 900) and (1100, 1500), and
+# (5, 1900) and (650, 2200) fall below and above.
+SEGMENT_PAIRS = ((5, 1900), (700, 900), (1100, 1500), (1000, 1050),
+                 (650, 2200))
+SEGMENT_CASES = {"square": (0, 0), "rows_from_600": (600, 0)}
+
+
+def segment_blocks(case):
+    """(rows, cols, row_g0, col_g0) of float64 arrays for one of
+    SEGMENT_CASES."""
+    full = glibc_like(2300, 40, SEGMENT_PAIRS)
+    g0, c0 = SEGMENT_CASES[case]
+    return [a[g0:] for a in full], [a[c0:] for a in full], g0, c0
+
+
+# A coincident pair (global ids a < b) and the row and column blocks (global
+# id ranges) that put each of its two terms in a segment of the kernels'
+# 128/128 bias: (term of row a, term of row b) is in the overlapping tile
+# ("pair"), a tile wholly below ("below") or wholly above ("above").  With
+# row_g0 = 37 and col_g0 = 90 each row block overlaps two column tiles, and
+# the "misaligned" pair's two terms fall one in each.
+KICK_PLACEMENTS = {
+    "same_tile": ((3, 50), (0, 256), (0, 256), ("pair", "pair")),
+    "tiles_apart": ((5, 300), (0, 384), (0, 384), ("above", "below")),
+    "misaligned": ((200, 230), (37, 437), (90, 600), ("pair", "pair")),
+    "misaligned_apart": ((100, 400), (37, 437), (90, 600),
+                         ("above", "below")),
+}
+
+
+def kick_case(name):
+    """(rows, cols, row_g0, col_g0, (ia, ib)) for one of KICK_PLACEMENTS:
+    bodies a and b (masses 5 and 7, radius 1.5) at (100, 200), every other
+    body massless and far (state.pad_state's padding), so a's and b's x
+    forces are the kick +-KICK and nothing else; ia, ib index the rows."""
+    (a, b), (r0, r1), (c0, c1), _ = KICK_PLACEMENTS[name]
+    n = max(r1, c1)
+    x, y = np.full(n, 1e9), np.full(n, 1e9)
+    m, r = np.zeros(n), np.zeros(n)
+    x[[a, b]], y[[a, b]] = 100.0, 200.0
+    m[a], m[b] = 5.0, 7.0
+    r[[a, b]] = 1.5
+    full = (x, y, m, r)
+    return ([v[r0:r1] for v in full], [v[c0:c1] for v in full], r0, c0,
+            (a - r0, b - r0))
+
+
 # Rows of the probes' square input that share a position: bodies 7 and 300,
 # and 10 and 11.
 PROBE_COINCIDENT = ((7, 300), (10, 11))

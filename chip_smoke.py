@@ -11,15 +11,20 @@ fp32 ``--accum=compensated`` and bf16), checks the printed state of a small
 run against the CPU and two full-width steps against the plain version, and
 times the kernels against their plain versions.  It also builds the probes
 P1 (``roofline_probe.cu``) and P2 (``bias_variants_probe.cu``) beside the
-force kernels, holds each of their 12 variants against its plain version,
-and runs both probe drivers at N=65536 through their kernels.  K1 and K2
-add the coincident kick through the TPU kernel's dx bias, segmented by
-tile (csrc/pairs.cuh): both are also held against their plain versions on
-blocks whose offsets are not multiples of 128, with coincident pairs placed
-in a tile below, a tile above and both overlapping tiles.  The SASS census
-tells K1's and K2's three fp32 pair loops apart (unbiased, constant bias,
-per-pair bias), checks that none holds a per-pair branch or the rsqrtf
-wrapper, and gives each kernel's issue bound.  Every phase passes or
+force kernels, prints the layout of their row loops as built (rows per
+thread, column split, the cluster fold, registers), holds each of their 12
+variants against its plain version in the kernel's summation order
+(including n = 384 and 1152, which neither the row block nor the split
+divides), and runs both probe drivers at N=65536 through their kernels.
+K1 and K2 add the coincident kick through the TPU kernel's dx bias,
+segmented by tile (csrc/pairs.cuh): both are also held against their plain
+versions on blocks whose offsets are not multiples of 128, with coincident
+pairs placed in a tile below, a tile above and both overlapping tiles.
+The SASS census tells K1's and K2's three fp32 pair loops apart (unbiased,
+constant bias, per-pair bias), checks that none holds a per-pair branch or
+the rsqrtf wrapper, checks the probe loops (no FSETP, a pass of R rows,
+every column load kept), and gives each kernel's issue bound.  Every phase
+passes or
 raises: any failure exits non-zero before the result lines.  The last two
 lines of stdout are the kernel table and the result, as JSON.
 
@@ -48,10 +53,11 @@ Tolerances (each comparison uses the plain version's max |F| as the scale):
     by an fp32 ulp, which moves close pairs' terms.  Positions within 1e-3
     (one printed unit), velocities and forces within 1e-3 of the field's
     max.
-  - probe kernels vs their plain versions, fp32 variants: 2e-5 * max|F| at
-    N=4096 and 4e-5 at N=65536.  The probes' uniform inputs give sums with
-    little cancellation (mem_only's and no_rsqrt's terms mostly share a
-    sign), and a sequential fp32 sum of N same-signed terms errs by about
+  - probe kernels vs their plain versions in the kernels' order (column
+    parts, each summed in order, folded in rank order), fp32 variants:
+    2e-5 * max|F| up to N=4096 and 4e-5 at N=65536.  The probes' uniform
+    inputs give sums with little cancellation (mem_only's and no_rsqrt's
+    terms mostly share a sign), and a sequential fp32 sum of N same-signed terms errs by about
     sqrt(N)/6 * 2^-23 of the sum: 5e-6 at N=65536, so 4e-5 leaves 8 sigma.
   - the tensor-core variants (mxu2_r2, bias1_mxu2) round each term to tf32
     (2^-11 relative): per row |error_i| <= 2^-10 * |G m_i| * sum_j |term_ij|,
@@ -164,7 +170,30 @@ def phase_build():
         if lib.build_log:
             print(lib.build_log.strip())
     print("build: %.3f s to load both" % seconds)
+    _probe_layout(libs["probes"])
     return seconds
+
+
+def _probe_layout(lib):
+    """Prints the probes' row-loop layout as built: rows per thread, column
+    split, whether the fold is a thread block cluster, and each probe
+    kernel's registers and spill stores from ptxas."""
+    from parallel_nbody_tpu_torch.benchmarks import _probe, sass_census
+    _probe.library()  # raises unless built in the plain version's layout
+    rows, split, min_blocks = _probe.layout(lib)
+    print("probe layout: R=%d rows per thread, S=%d column parts, fold %s, "
+          "registers kept for %d blocks per SM; at N=%d the full kernel "
+          "holds %d blocks per SM and %d clusters at once"
+          % (rows, split, "in a thread block cluster of %d" % split
+             if split > 1 else "none", min_blocks, PROBE_N,
+             lib.cdll.nbody_probe_occupancy(0, PROBE_N),
+             lib.cdll.nbody_probe_occupancy(1, PROBE_N)))
+    regs = sass_census.ptxas_registers(lib.build_log)
+    if not regs:
+        print("probe kernels: no ptxas report (library loaded as built)")
+    for name, (count, spill) in sorted(regs.items()):
+        print("probe kernel %-34s %3d registers, %d bytes spill stores"
+              % (name, count, spill))
 
 
 def _compare(label, rows, cols, dtype, biased, row_g0=0, col_g0=0,
@@ -617,14 +646,14 @@ def _probe_inputs(n, seed, dev, square=False):
 
 
 def _compare_probe(module, variant, args, label, tol, **tiles):
-    """A probe kernel vs its plain version on the card.  Returns (max |error|,
-    ms of the plain version's call)."""
+    """A probe kernel vs its plain version in the kernel's order on the
+    card.  Returns (max |error|, ms of the plain version's call)."""
     got = module.probe_forces(variant, *args, **tiles)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    *want, xmag, ymag = module.probe_forces_reference(
+    *want, xmag, ymag = module.probe_forces_kernel_order(
         variant, *args, magnitudes=True, **tiles)
     end.record()
     torch.cuda.synchronize()
@@ -680,10 +709,11 @@ def _run_probe_driver(module, argv, runs):
 
 
 def phase_probes(dev):
-    """P1 and P2: every variant's kernel against its plain version (N=4096
-    independent, square with coincident bodies, and fed back; then the
-    drivers' own inputs at N=65536), both drivers at N=65536, and K1 on the
-    drivers' inputs in the same run."""
+    """P1 and P2: every variant's kernel against its plain version in the
+    kernel's order (N=4096 independent, square with coincident bodies, and
+    fed back; N=384 and N=1152 square, which neither the row block nor the
+    column split divides; then the drivers' own inputs at N=65536), both
+    drivers at N=65536, and K1 on the drivers' inputs in the same run."""
     from parallel_nbody_tpu_torch.benchmarks import _probe
     from parallel_nbody_tpu_torch.benchmarks import bias_variants_probe as p2
     from parallel_nbody_tpu_torch.benchmarks import roofline_probe as p1
@@ -692,11 +722,18 @@ def phase_probes(dev):
     for module in (p1, p2):
         ind = _probe_inputs(4096, 0, dev)
         square = _probe_inputs(4096, 1, dev, square=True)
+        ragged = _probe_inputs(384, 2, dev)
+        ragged_square = _probe_inputs(1152, 3, dev, square=True)
         big = _probe.inputs(PROBE_N, dev)
         for variant in module.VARIANTS:
             _compare_probe(module, variant, ind, "N=4096", TOL[torch.float32])
             _compare_probe(module, variant, square, "N=4096 square 128/256",
                            TOL[torch.float32], tile_i=128, tile_j=256)
+            _compare_probe(module, variant, ragged, "N=384 128/128",
+                           TOL[torch.float32], tile_i=128, tile_j=128)
+            _compare_probe(module, variant, ragged_square,
+                           "N=1152 square 128/384", TOL[torch.float32],
+                           tile_i=128, tile_j=384)
             xf, yf = module.probe_forces_reference(variant, *ind)
             _compare_probe(module, variant, [xf, yf] + ind[2:],
                            "N=4096 fed back", TOL[torch.float32])
@@ -722,28 +759,37 @@ def phase_probes(dev):
              ms2["r2"] / k1["unbiased"]))
     # Each variant once more with CUDA events on the same inputs as K1 (no
     # feedback), so the probes and K1 compare on one footing.
+    events = {}
     for module in (p1, p2):
         for variant in module.VARIANTS:
             ms = _time_ms(lambda: module.probe_forces(variant, *big), 10)
+            events[module.NAME, variant] = ms
             print("time N=%d events %-19s %-11s %.6f ms (%.4f of K1 "
                   "unbiased)" % (PROBE_N, module.NAME, variant, ms,
                                  ms / k1["unbiased"]))
-    return {"P1": dict(ms=ms1["full"], launches=launches1,
-                       max_abs_err=main["roofline_probe", "full"][0],
-                       plain_ms=main["roofline_probe", "full"][1]),
-            "P2": dict(ms=ms2["r2"], launches=launches2,
-                       max_abs_err=main["bias_variants_probe", "r2"][0],
-                       plain_ms=main["bias_variants_probe", "r2"][1])}
+    kernels = {"P1": dict(ms=ms1["full"], launches=launches1,
+                          max_abs_err=main["roofline_probe", "full"][0],
+                          plain_ms=main["roofline_probe", "full"][1]),
+               "P2": dict(ms=ms2["r2"], launches=launches2,
+                          max_abs_err=main["bias_variants_probe", "r2"][0],
+                          plain_ms=main["bias_variants_probe", "r2"][1])}
+    return events, kernels
 
 
 def _sass_census():
     """The fp32 pair loops' instructions per pair (benchmarks/sass_census),
     with K1's and K2's three loops told apart.  Checks that each of those
     loops holds no FSETP (neither the old per-pair dsqr == 0 test nor the
-    rsqrtf wrapper) and no branch but its own, and that the compiler kept
-    the ablated probe loops' loads: `full`, `no_rsqrt` and `mem_only` read
-    all four column values of each pair.  Returns {(kernel, role):
-    instructions per pair} of K1's and K2's fp32 loops (plain accum)."""
+    rsqrtf wrapper) and no branch but its own, and that every probe loop
+    passes ``sass_census.probe_loop_faults``: no FSETP, a pass of 8 columns
+    by R rows (one MUFU a pair where the variant takes an rsqrt), and every
+    column load kept (`full`, `no_rsqrt` and `mem_only` read all four
+    values of each column, `no_soften` three).  Returns {(kernel, role):
+    instructions per pair} of K1's and K2's fp32 loops (plain accum) and
+    {(kernel, "probe"): the same} of the probe kernels' loops (the shortest
+    of bias_cond's two)."""
+    from parallel_nbody_tpu_torch.benchmarks import bias_variants_probe as p2
+    from parallel_nbody_tpu_torch.benchmarks import roofline_probe as p1
     from parallel_nbody_tpu_torch.benchmarks import sass_census
     if sass_census.cuobjdump() is None:
         print("sass census: cuobjdump not found, skipped")
@@ -753,7 +799,7 @@ def _sass_census():
         rows = sass_census.census(sass_census.library_sass(lib))
         roles = sass_census.loop_roles(rows)
         for row in rows:
-            name, start, _, pairs, ops = row
+            name, start, _, _, ops = row
             if "<d" in name or "bfloat16" in name:
                 continue  # the fp32 loops are the ones the probes ablate
             role = roles.get((name, start), "")
@@ -767,24 +813,44 @@ def _sass_census():
                 if name.endswith("<fLb0>"):
                     ipp[name.split("<")[0], role] = \
                         sass_census.instr_per_pair(row)
-            if name in ("roofline_probe_kernel<Li0>",
-                        "roofline_probe_kernel<Li1>",
-                        "roofline_probe_kernel<Li3>") and \
-                    sass_census.floats_loaded(ops) < 4 * pairs:
-                raise AssertionError("%s: the compiler dropped column loads "
-                                     "from the pair loop" % name)
+            if name.startswith(("roofline_probe", "bias_probe")):
+                faults = sass_census.probe_loop_faults(row)
+                if faults:
+                    raise AssertionError("%s loop %x: %s"
+                                         % (name, start, "; ".join(faults)))
+                ipp[name, "probe"] = min(
+                    ipp.get((name, "probe"), float("inf")),
+                    sass_census.instr_per_pair(row))
     missing = [(k, r) for k in sass_census.FORCE_KERNELS
                for r in sass_census.ROLES if (k, r) not in ipp]
+    missing += [(k, "probe") for k in (
+        _probe_kernel(m.NAME, v) for m in (p1, p2) for v in m.VARIANTS)
+        if (k, "probe") not in ipp]
     if missing:
         raise AssertionError("sass census: no loop for %s" % missing)
     return ipp
 
 
-def _issue_report(ipp, issue_hz, times, times_big):
+def _probe_kernel(probe, variant):
+    """The census's name of the kernel a probe variant launches."""
+    from parallel_nbody_tpu_torch.benchmarks import _probe
+    from parallel_nbody_tpu_torch.benchmarks import bias_variants_probe as p2
+    from parallel_nbody_tpu_torch.benchmarks import roofline_probe as p1
+    if variant in _probe.TF32_VARIANTS:
+        return "bias_probe_mma_kernel<Lb%d>" % (variant == "bias1_mxu2")
+    if probe == p1.NAME:
+        return "roofline_probe_kernel<Li%dELi%d>" % (
+            p1.VARIANTS.index(variant), _probe.ROWS)
+    return "bias_probe_kernel<Li%dELi%d>" % (p2.VARIANTS.index(variant),
+                                             _probe.ROWS)
+
+
+def _issue_report(ipp, issue_hz, times, times_big, probe_events):
     """Each force kernel's times at its main shape beside the issue bound of
     its loops (instructions per pair from the census, at the maximum SM
     clock), the biased/unbiased ratio, and the biased-unbiased gap beside
-    any_coincident's time."""
+    any_coincident's time; then every probe variant's time at PROBE_N
+    (CUDA events) beside its loop's issue bound."""
     for kernel, label, n, t_off, t_on, t_any in (
             ("block_forces_kernel", "K1", MAIN_N, times["kernel"],
              times["kernel_biased"], times["any_coincident"]),
@@ -807,6 +873,15 @@ def _issue_report(ipp, issue_hz, times, times_big):
                         bound["constant bias"],
                         100 * bound["constant bias"] / t_on))
         print(line)
+    for (probe, variant), ms in probe_events.items():
+        kernel = _probe_kernel(probe, variant)
+        if (kernel, "probe") not in ipp:
+            continue
+        bound = ipp[kernel, "probe"] * PROBE_N ** 2 / WARP / issue_hz * 1e3
+        print("issue %s %s N=%d: %.6f ms, issue bound %.3f instr/pair %.6f "
+              "ms (%.1f%% of the issue rate)"
+              % (probe, variant, PROBE_N, ms, ipp[kernel, "probe"], bound,
+                 100 * bound / ms))
 
 
 def _bound(n_rows, n_cols):
@@ -845,8 +920,8 @@ def main() -> int:
     phase_state_streamed(dev)
     times = phase_timing(dev)
     times_big = phase_timing_streamed(dev)
-    probes = phase_probes(dev)
-    _issue_report(_sass_census(), issue_hz, times, times_big)
+    probe_events, probes = phase_probes(dev)
+    _issue_report(_sass_census(), issue_hz, times, times_big, probe_events)
     print("chip_smoke: %.1f s" % (time.perf_counter() - t_start))
     source = "parallel_nbody_tpu_torch/csrc/%s"
     replaces = "parallel_nbody_tpu/ops/pallas_step.py:%d"

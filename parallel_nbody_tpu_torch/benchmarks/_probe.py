@@ -1,14 +1,27 @@
 """What the two probes share: the pair arithmetic of all their variants in
-plain PyTorch, the input checks, the kernel launch and the timing loop.
+plain PyTorch, in two summation orders, the input checks, the kernel launch
+and the timing loop.
 
-The plain version follows the Pallas probes' summation: each row is summed
-over every ``tile_j``-wide column slice, and the slice sums are folded in
-order, as ``make_kernel``'s ``fori_loop`` adds each tile's row sums to its
-accumulator.  Then ``F_i = acc_i * (m_i * 1.1)``.
+Two plain versions compute the same pair terms and differ only in the order
+they sum them:
+
+- ``reference``, the Pallas probes' order: each row is summed over every
+  ``tile_j``-wide column slice, and the slice sums are folded in order, as
+  ``make_kernel``'s ``fori_loop`` adds each tile's row sums to its
+  accumulator.  The CPU tests hold it to the Pallas probes.
+- ``kernel_order``, the CUDA kernels' order (``csrc/probe_layout.cuh``):
+  the columns cut into ``SPLIT`` parts of whole 128-column tiles, each part
+  folded over its tiles in order, and the part sums folded in rank order.
+  The wrappers run it on CPU tensors, and the card holds the kernels to it.
+  (Within a 128-column tile the kernel adds term by term and the plain
+  version sums the tile as ``torch.sum`` does; the tolerances cover that.)
+
+Then ``F_i = acc_i * (m_i * 1.1)``.
 """
 
 from __future__ import annotations
 
+import functools
 import subprocess
 import time
 
@@ -20,8 +33,13 @@ BIAS = 2.0 ** -50
 CBIAS = 2.0 ** -26
 # The probes' G (make_kernel's ``* 1.1``).
 GRAVITY = 1.1
-# The kernels' row block and staged column tile (kBlock in csrc/pairs.cuh).
+# The kernels' staged column tile (kBlock in csrc/pairs.cuh).
 TILE = 128
+# The row loops' layout (kRows and kSplit in csrc/probe_layout.cuh): rows
+# per thread, and the parts the columns are split into.  The tensor-core
+# variants take no split.
+ROWS, SPLIT = 4, 2
+TF32_VARIANTS = ("mxu2_r2", "bias1_mxu2")
 # Variants whose de-NaN floor is max(q, 1e-30); the others of P2 add 1e-36.
 _MAX_EPS = ("full", "no_rsqrt", "r2", "bias2_max", "mxu2_r2")
 _BIAS1 = ("bias1_const", "bias1_fma", "bias1_mxu2")
@@ -97,15 +115,13 @@ def _pair_terms(variant, xi, yi, ri, bi, row0, xj, yj, mj, rj, bj, col0,
     return scale * dx, scale * dy
 
 
-def reference(variant, tensors, tile_i, tile_j, magnitudes=False):
-    """The plain version of every probe variant (``tensors`` are xi, yi, mi,
-    ri, xj, yj, mj, rj, checked by the caller).  Returns (xf, yf) or, with
-    ``magnitudes``, (xf, yf, xmag, ymag), where ``xmag_i`` is
-    ``|m_i * 1.1| * sum_j |x term_ij|``: the scale of the tf32 error bound of
-    the tensor-core variants."""
+def _tile_sums(variant, tensors, tile_i, tile_j, width, magnitudes):
+    """The pair terms of every row summed over each ``width``-wide column
+    slice: two (n, n / width) tensors, and with ``magnitudes`` the (2, n)
+    sums of |term| over all columns."""
     xi, yi, mi, ri, xj, yj, mj, rj = tensors
     n, dev = xi.shape[0], xi.device
-    nt = n // tile_j
+    nt = n // width
     ids = torch.arange(n, device=dev)
     b = ids.to(torch.float32) * BIAS
     row0, col0 = ids - ids % tile_i, ids - ids % tile_j
@@ -118,27 +134,89 @@ def reference(variant, tensors, tile_i, tile_j, magnitudes=False):
         tx, ty = _pair_terms(variant, xi[rows], yi[rows], ri[rows], b[rows],
                              row0[rows], xj, yj, mj, rj, b, col0, tile_i,
                              tile_j)
-        px[rows] = tx.view(-1, nt, tile_j).sum(2)
-        py[rows] = ty.view(-1, nt, tile_j).sum(2)
+        px[rows] = tx.view(-1, nt, width).sum(2)
+        py[rows] = ty.view(-1, nt, width).sum(2)
         if magnitudes:
             mag[0, rows] = tx.abs().sum(1)
             mag[1, rows] = ty.abs().sum(1)
-    ax = torch.zeros(n, dtype=torch.float32, device=dev)
+    return px, py, mag
+
+
+def _fold(px, py):
+    """The columns of (n, T) partial sums folded in order."""
+    ax = torch.zeros(px.shape[0], dtype=torch.float32, device=px.device)
     ay = torch.zeros_like(ax)
     for vx, vy in zip(px.t(), py.t()):
         ax = ax + vx
         ay = ay + vy
+    return ax, ay
+
+
+def _finish(ax, ay, mi, mag, magnitudes):
     gmi = mi * GRAVITY
     if magnitudes:
         return ax * gmi, ay * gmi, mag[0] * gmi.abs(), mag[1] * gmi.abs()
     return ax * gmi, ay * gmi
 
 
-def launch(name, fn_name, variant_index, tensors, tile_i, tile_j):
-    """Launch the probe kernel ``fn_name`` of the probes library on the
-    device's current stream into fresh outputs (never aliased with an
-    input); raise if the launch was refused."""
+def reference(variant, tensors, tile_i, tile_j, magnitudes=False):
+    """The plain version of every probe variant in the Pallas probes' order
+    (``tensors`` are xi, yi, mi, ri, xj, yj, mj, rj, checked by the
+    caller).  Returns (xf, yf) or, with ``magnitudes``, (xf, yf, xmag,
+    ymag), where ``xmag_i`` is ``|m_i * 1.1| * sum_j |x term_ij|``: the
+    scale of the tf32 error bound of the tensor-core variants."""
+    px, py, mag = _tile_sums(variant, tensors, tile_i, tile_j, tile_j,
+                             magnitudes)
+    return _finish(*_fold(px, py), tensors[2], mag, magnitudes)
+
+
+def split_of(variant):
+    """The column split of ``variant``'s kernel."""
+    return 1 if variant in TF32_VARIANTS else SPLIT
+
+
+def kernel_order(variant, tensors, tile_i, tile_j, split, magnitudes=False):
+    """The plain version of every probe variant in the kernels' order: the
+    n / 128 column tiles cut into ``split`` parts of ceil(tiles / split)
+    tiles (the last ones short or empty), each part's 128-column sums
+    folded in order, and the part sums folded in rank order.  Arguments
+    and results as ``reference``'s."""
+    px, py, mag = _tile_sums(variant, tensors, tile_i, tile_j, TILE,
+                             magnitudes)
+    per = -(-px.shape[1] // split)
+    parts = [_fold(px[:, p:p + per], py[:, p:p + per])
+             for p in range(0, split * per, per)]
+    ax, ay = parts[0]
+    for vx, vy in parts[1:]:
+        ax = ax + vx
+        ay = ay + vy
+    return _finish(ax, ay, tensors[2], mag, magnitudes)
+
+
+def layout(lib):
+    """(rows per thread, column split, blocks per SM kept registers for) of
+    a built probes library's row loops."""
+    return tuple(lib.cdll.nbody_probe_layout(k) for k in (0, 1, 2))
+
+
+@functools.cache
+def library():
+    """The probes library as the wrappers run it; raises if its layout is
+    not (ROWS, SPLIT), which ``kernel_order`` assumes."""
     lib = _build.load("probes")
+    if layout(lib)[:2] != (ROWS, SPLIT):
+        raise RuntimeError("the probes library was built with layout %s, "
+                           "not (ROWS, SPLIT) = %s"
+                           % (layout(lib)[:2], (ROWS, SPLIT)))
+    return lib
+
+
+def launch(name, fn_name, variant_index, tensors, tile_i, tile_j, lib=None):
+    """Launch the probe kernel ``fn_name`` of the probes library (``lib``,
+    by default ``library()``) on the device's current stream into fresh
+    outputs (never aliased with an input); raise if the launch was
+    refused."""
+    lib = library() if lib is None else lib
     dev = tensors[0].device
     xf = torch.empty_like(tensors[0])
     yf = torch.empty_like(tensors[0])

@@ -1,8 +1,13 @@
 """Coincident-bias probe P2 on the card: the ways of applying the
-reference's coincident-pair kick inside K1's pair loop.
+reference's coincident-pair kick inside the fp32 pair loop.
 
 Counterpart of the JAX package's ``benchmarks/bias_variants_probe.py``.
-The variants (``csrc/bias_variants_probe.cu`` states each one's arithmetic):
+The six scalar variants run P1's layout (``csrc/probe_layout.cuh``), no
+longer K1's: four rows per thread sharing each staged column, the columns
+split into two parts folded in rank order inside a thread block cluster;
+their loop is bound by instruction issue (``sass_census``).  The two
+tensor-core variants keep one warp per 16 rows and no split.  The variants
+(``csrc/bias_variants_probe.cu`` states each one's arithmetic):
 
   r2          the pair loop without the kick: the bar to recover
   bias2_max   dx + (bj - bi) per pair, floor via max
@@ -36,7 +41,7 @@ from . import _probe
 VARIANTS = ("r2", "bias2_max", "bias2_fma", "bias_cond", "bias1_const",
             "bias1_fma", "mxu2_r2", "bias1_mxu2")
 # The tensor-core variants: their terms are rounded to tf32.
-TF32_VARIANTS = ("mxu2_r2", "bias1_mxu2")
+TF32_VARIANTS = _probe.TF32_VARIANTS
 NAME = "bias_variants_probe"
 
 
@@ -48,11 +53,13 @@ def probe_forces(variant, xi, yi, mi, ri, xj, yj, mj, rj, *, tile_i=1024,
     (themselves multiples of 128; ``bias_cond`` reads them).
 
     On CUDA tensors it launches the kernel, or raises, and adds one to
-    ``probe_forces.launches``; on CPU tensors it runs the plain version."""
+    ``probe_forces.launches``; on CPU tensors it runs the plain version in
+    the kernel's order (``probe_forces_kernel_order``)."""
     args = (xi, yi, mi, ri, xj, yj, mj, rj)
     _probe.check(NAME, VARIANTS, variant, args, tile_i, tile_j)
     if xi.device.type == "cpu":
-        return _probe.reference(variant, args, tile_i, tile_j)
+        return _probe.kernel_order(variant, args, tile_i, tile_j,
+                                   _probe.split_of(variant))
     out = _probe.launch(NAME, "nbody_bias_variants_probe",
                         VARIANTS.index(variant), args, tile_i, tile_j)
     probe_forces.launches += 1
@@ -71,6 +78,19 @@ def probe_forces_reference(variant, xi, yi, mi, ri, xj, yj, mj, rj, *,
     args = (xi, yi, mi, ri, xj, yj, mj, rj)
     _probe.check(NAME, VARIANTS, variant, args, tile_i, tile_j)
     return _probe.reference(variant, args, tile_i, tile_j, magnitudes)
+
+
+def probe_forces_kernel_order(variant, xi, yi, mi, ri, xj, yj, mj, rj, *,
+                              tile_i=1024, tile_j=1024, magnitudes=False):
+    """The plain PyTorch version of ``probe_forces`` in the kernel's order,
+    on any device, in fp32 throughout: the 128-column tiles cut into
+    ``_probe.SPLIT`` parts (one for the tensor-core variants), each folded
+    in order, the parts folded in rank order (see
+    ``_probe.kernel_order``)."""
+    args = (xi, yi, mi, ri, xj, yj, mj, rj)
+    _probe.check(NAME, VARIANTS, variant, args, tile_i, tile_j)
+    return _probe.kernel_order(variant, args, tile_i, tile_j,
+                               _probe.split_of(variant), magnitudes)
 
 
 def bench_variant(variant: str, n: int, steps: int, tile_i: int,

@@ -1,11 +1,16 @@
-"""Roofline probe P1 on the card: ablations of K1's pair loop.
+"""Roofline probe P1 on the card: ablations of the fp32 pair loop.
 
 Counterpart of the JAX package's ``benchmarks/roofline_probe.py``.  Each
 variant takes part of the force kernel's pair arithmetic out (the rsqrt,
 the softening, everything but the loads) and is timed, to locate what
 bounds the loop.  The ablated variants compute wrong physics on purpose.
-The kernel (``csrc/roofline_probe.cu``) runs each variant on K1's CUDA
-layout, so the ablations ablate the CUDA K1's loop.
+The kernel (``csrc/roofline_probe.cu``) runs each variant on the probes'
+own layout (``csrc/probe_layout.cuh``), no longer K1's: four rows per
+thread sharing each staged column, the columns split into two parts folded
+in rank order inside a thread block cluster.  The loop is bound by
+instruction issue (14.375 instructions per pair for ``full``, from
+``sass_census``); tensor cores, TMA and Newton's-third-law folding do not
+serve it (the source says why).
 
     python -m parallel_nbody_tpu_torch.benchmarks.roofline_probe [N] [steps]
 
@@ -33,11 +38,13 @@ def probe_forces(variant, xi, yi, mi, ri, xj, yj, mj, rj, *, tile_i=256,
     of ``tile_i`` and ``tile_j`` (themselves multiples of 128).
 
     On CUDA tensors it launches the kernel, or raises, and adds one to
-    ``probe_forces.launches``; on CPU tensors it runs the plain version."""
+    ``probe_forces.launches``; on CPU tensors it runs the plain version in
+    the kernel's order (``probe_forces_kernel_order``)."""
     args = (xi, yi, mi, ri, xj, yj, mj, rj)
     _probe.check(NAME, VARIANTS, variant, args, tile_i, tile_j)
     if xi.device.type == "cpu":
-        return _probe.reference(variant, args, tile_i, tile_j)
+        return _probe.kernel_order(variant, args, tile_i, tile_j,
+                                   _probe.split_of(variant))
     out = _probe.launch(NAME, "nbody_roofline_probe", VARIANTS.index(variant),
                         args, tile_i, tile_j)
     probe_forces.launches += 1
@@ -55,6 +62,18 @@ def probe_forces_reference(variant, xi, yi, mi, ri, xj, yj, mj, rj, *,
     args = (xi, yi, mi, ri, xj, yj, mj, rj)
     _probe.check(NAME, VARIANTS, variant, args, tile_i, tile_j)
     return _probe.reference(variant, args, tile_i, tile_j, magnitudes)
+
+
+def probe_forces_kernel_order(variant, xi, yi, mi, ri, xj, yj, mj, rj, *,
+                              tile_i=256, tile_j=1024, magnitudes=False):
+    """The plain PyTorch version of ``probe_forces`` in the kernel's order,
+    on any device: the 128-column tiles cut into ``_probe.SPLIT`` parts,
+    each folded in order, the parts folded in rank order (see
+    ``_probe.kernel_order``)."""
+    args = (xi, yi, mi, ri, xj, yj, mj, rj)
+    _probe.check(NAME, VARIANTS, variant, args, tile_i, tile_j)
+    return _probe.kernel_order(variant, args, tile_i, tile_j,
+                               _probe.split_of(variant), magnitudes)
 
 
 def bench_variant(variant: str, n: int, steps: int, tile_i: int = 256,

@@ -26,11 +26,16 @@ import sys
 
 from ..ops import _build
 
-# Pairs one pass of each kernel's inner loop covers: the row kernels unroll
-# the tile loop 8 times; a lane of the tensor-core kernel computes 4 pairs
-# for each of the 4 unrolled 8-column chunks.
-_PAIRS = {"bias_probe_mma_kernel": 16}
-_DEFAULT_PAIRS = 8
+# Pairs one pass of each kernel's inner loop covers: the force kernels
+# unroll the tile loop 8 times (one row per thread); the probes' row
+# kernels unroll it 8 columns deep over their R rows per thread, R being
+# the last template argument (``roofline_probe_kernel<Li0ELi4>``); a lane
+# of the tensor-core kernel computes 4 pairs for each of the 4 unrolled
+# 8-column chunks.
+_UNROLL = 8
+_MMA_PAIRS = 16
+_PROBE_ROW_KERNEL = re.compile(
+    r"(roofline_probe_kernel|bias_probe_kernel)<Li(\d+)ELi(\d+)>")
 # Opcodes of the FP32 pipe, counted together.
 FP32 = ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL")
 _LDS_FLOATS = {"LDS": 1, "LDS.64": 2, "LDS.128": 4}
@@ -95,14 +100,21 @@ def inner_loops(instrs):
     return sorted(loops)
 
 
+def pairs_per_pass(name: str) -> int:
+    """Pairs one pass of kernel ``name``'s inner loop covers."""
+    if name.startswith("bias_probe_mma_kernel"):
+        return _MMA_PAIRS
+    m = _PROBE_ROW_KERNEL.fullmatch(name)
+    return _UNROLL * (int(m.group(3)) if m else 1)
+
+
 def census(sass: str):
     """[(kernel, start, end, pairs per pass, Counter)] for every inner loop
     of every kernel in the listing."""
     rows = []
     for mangled, instrs in functions(sass).items():
         name = kernel_name(mangled)
-        pairs = next((p for k, p in _PAIRS.items() if name.startswith(k)),
-                     _DEFAULT_PAIRS)
+        pairs = pairs_per_pass(name)
         for start, end, ops in inner_loops(instrs):
             rows.append((name, start, end, pairs, ops))
     return rows
@@ -131,9 +143,63 @@ def loop_roles(rows):
     return roles
 
 
+def ptxas_registers(log: str):
+    """{kernel: (registers, spill store bytes)} from the ``-Xptxas -v``
+    report in a build log (``Library.build_log``), kernels named as
+    ``kernel_name`` names them."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        f = re.search(r"Compiling entry function '(\S+)'", line)
+        if f:
+            cur = kernel_name(f.group(1))
+            out[cur] = (0, 0)
+            continue
+        if cur is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores", line)
+        if spill:
+            out[cur] = (out[cur][0], int(spill.group(1)))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            out[cur] = (int(regs.group(1)), out[cur][1])
+    return out
+
+
 def floats_loaded(ops) -> int:
     """Shared-memory floats one pass of a loop reads."""
     return sum(_LDS_FLOATS.get(op, 0) * n for op, n in ops.items())
+
+
+def probe_loop_faults(row):
+    """What is wrong with one pair loop of a probe kernel (census row), as
+    a list of strings; [] when nothing is, or the loop is no probe's.  No
+    probe loop may hold rsqrtf's wrapper for tiny arguments (an FSETP and
+    two predicated FMULs a pair; the probes use the bare MUFU): a row
+    kernel's loop holds no FSETP at all, the tensor-core kernel's no more
+    than its two tf32 conversions a pair bring (one each on sm_90).  A row
+    kernel's pass must cover 8 columns of its R rows, one MUFU per pair
+    where the variant takes an rsqrt (all but P1's no_rsqrt and mem_only),
+    and read each of its 8 columns once in full: 4 shared floats a column
+    (x, y, m, r), 3 for P1's no_soften, which has no use for r.  Fewer
+    floats than that means the compiler dropped a load the variant is
+    meant to keep."""
+    name, _, _, pairs, ops = row
+    m = _PROBE_ROW_KERNEL.fullmatch(name)
+    if m is None:
+        mma = name.startswith("bias_probe_mma_kernel")
+        return (["%d FSETP for %d pairs" % (ops["FSETP"], pairs)]
+                if mma and ops["FSETP"] > 2 * pairs else [])
+    faults = ["%d FSETP" % ops["FSETP"]] if ops["FSETP"] else []
+    kernel, variant = m.group(1), int(m.group(2))
+    p1 = kernel == "roofline_probe_kernel"
+    rsqrt = not (p1 and variant in (1, 3))
+    if rsqrt and ops["MUFU"] != pairs:
+        faults.append("%d MUFU for %d pairs" % (ops["MUFU"], pairs))
+    need = (3 if p1 and variant == 2 else 4) * _UNROLL
+    if floats_loaded(ops) < need:
+        faults.append("%d shared floats for %d columns (dropped loads)"
+                      % (floats_loaded(ops), _UNROLL))
+    return faults
 
 
 def instr_per_pair(row) -> float:
@@ -161,14 +227,18 @@ def cuobjdump() -> str:
     return found if os.path.exists(found) else shutil.which("cuobjdump")
 
 
-def library_sass(name: str) -> str:
-    """The SASS listing of library ``name`` (built at first use)."""
+def sass_of(path: str) -> str:
+    """The SASS listing of the built library at ``path``."""
     tool = cuobjdump()
     if tool is None:
         raise RuntimeError("cuobjdump not found next to nvcc or on PATH")
-    return subprocess.run([tool, "-sass", _build.load(name).path],
-                          capture_output=True, text=True, check=True,
-                          timeout=300).stdout
+    return subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+
+
+def library_sass(name: str) -> str:
+    """The SASS listing of library ``name`` (built at first use)."""
+    return sass_of(_build.load(name).path)
 
 
 def main(argv=None) -> int:

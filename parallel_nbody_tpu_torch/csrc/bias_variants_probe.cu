@@ -1,5 +1,5 @@
 // Coincident-bias probe for Hopper (sm_90a): P2, the ways of applying the
-// reference's coincident-pair kick inside K1's pair loop.
+// reference's coincident-pair kick inside the fp32 pair loop.
 //
 // Replaces benchmarks/bias_variants_probe.py::make_kernel (the Pallas probe
 // that bench_variant times).  The reference gives a coincident distinct
@@ -26,46 +26,67 @@
 //   acc_i += mj * inv * (dx, dy);   F_i = acc_i * (mi * 1.1)
 //
 // bias1_const and bias1_fma are the same arithmetic in the Pallas probe, and
-// so here.  bj is computed once per staged column (a fifth shared-memory
-// row), as the Pallas kernel computes it once per column tile; bj - bi is
-// exact (both are integers below 2^24 times 2^-50), and the order
-// (xj - xi) + bias is kept, with no --use_fast_math, so the rounding of each
-// biased dx is the Pallas probe's.
+// so here.  bj is computed once per staged column (a second shared-memory
+// array beside the float4 columns), as the Pallas kernel computes it once
+// per column tile; bj - bi is exact (both are integers below 2^24 times
+// 2^-50), and the order (xj - xi) + bias is kept, with no --use_fast_math,
+// so the rounding of each biased dx is the Pallas probe's.
 //
-// Layout of the six scalar variants: K1's (forces.cu, pairs.cuh), so that
-// they price the bias inside the CUDA K1's loop: one thread per row body,
-// blocks of kBlock = 128, 128-wide column tiles staged in shared memory, the
-// sum in registers.  bias_cond's overlap test uses the probe's semantic
-// tiles, not the CUDA block: row0 = i - i % tile_i per thread, and
-// col0 = j0 - j0 % tile_j per staged tile, which is one Pallas column tile
-// because the wrapper admits only tile_j that is a multiple of 128.  The
-// test is made once per staged tile, as the Pallas kernel's lax.cond is
-// made once per tile pair.
+// The rsqrt is the bare MUFU instruction (pairs.cuh::rsqrt_t) in every
+// variant.  Its argument is max(q, 1e-30) or q + 1e-36 with q = forced^2 *
+// dsqr >= 0: never below FLT_MIN (1.18e-38), or +inf, or NaN from NaN
+// inputs, so rsqrtf's rescaling of tiny arguments never fires and
+// rsqrt.approx.ftz.f32 returns rsqrtf's bits.  No -ftz elsewhere.
+//
+// Layout of the six scalar variants: csrc/probe_layout.cuh, as P1's.  R = 4
+// rows per thread (each with its own bi), each staged float4 column used
+// for all R rows, the tile staging double-buffered (bj too), the columns
+// split into S = 2 parts folded in rank order inside a thread block
+// cluster.  They no longer run K1's layout (one row per thread, no split):
+// what differs is the rows per thread, the split and its fold, the
+// staging, and so each row's summation order, not the pair arithmetic.
+// Their loops are 14.375 (r2) to 16.469 (bias2_max) instructions per pair,
+// bound by instruction issue as P1's.  bias_cond's overlap test uses the
+// probe's semantic tiles, not the CUDA block: row0 = i - i % tile_i of the thread's rows, which lie
+// in one tile_i segment (a warp's 32 R contiguous rows), and col0 = j0 - j0
+// % tile_j per staged tile, one Pallas column tile because the wrapper
+// admits only tile_j that is a multiple of 128 and the split cuts on
+// 128-column tiles.  The test is made once per staged tile, uniformly
+// across each warp, as the Pallas kernel's lax.cond is made once per tile
+// pair.
 //
 // The two tensor-core variants replace the TPU's matrix-vector product
 // against ones on the MXU (:88-96) with mma.sync.m16n8k8 (tf32 inputs,
 // fp32 accumulate) against a B operand of ones.  A warp owns 16 rows, a
 // block of 128 threads 64.  For each 8-column chunk of a staged tile, lane
-// (g = lane / 4, t = lane % 4) computes the four A-fragment terms of its
-// slots, rows g and g + 8 by columns t and t + 4, rounds them to tf32
-// (cvt.rna), and one mma per component adds the chunk's row sums to every
-// column of the C fragment.  A fresh C per staged tile holds that tile's
-// partial, which is then added to the row's fp32 sum, as the Pallas kernel
-// adds each tile's product to its accumulator.  The rounding to tf32 (11
-// significant bits, relative error at most 2^-11 per term) sets the
-// tolerance: |error_i| <= 2^-10 * sum_j |term_ij| per row.  3xTF32 would buy
-// fp32 accuracy for twice the mma count; the probe prices the single pass.
+// (g = lane / 4, t = lane % 4) reads its two columns t and t + 4 as one
+// LDS.128 each (the same float4 staging), computes the four A-fragment
+// terms of its slots, rows g and g + 8 by those columns, rounds them to
+// tf32 (cvt.rna), and one mma per component adds the chunk's row sums to
+// every column of the C fragment.  A fresh C per staged tile holds that
+// tile's partial, which is then added to the row's fp32 sum, as the Pallas
+// kernel adds each tile's product to its accumulator.  They take no column
+// split and a single-buffered tile: 64 rows a block already make 1024
+// blocks of 4 warps at n = 65536, and what bounds them is their loop of
+// 19.6 instructions per pair (r2's is 14.4): the tf32 conversions and the
+// fragment addressing.  The rounding to tf32 (11 significant bits,
+// relative error at most 2^-11 per term) sets the tolerance: |error_i| <=
+// 2^-10 * sum_j |term_ij| per row.  3xTF32 would buy fp32 accuracy for
+// twice the mma count; the probe prices the single pass.  wgmma would not
+// help: the reduction is 2 HMMA per 16 pairs a warp, and the cost lies in
+// the FP32 work that builds and converts the terms.
 //
-// Bound: operations.  r2 costs 16 FP32 operations and one MUFU rsqrt per
+// Bound: operations by the FP32 peak, instruction issue on the card (see
+// roofline_probe.cu).  r2 costs 16 FP32 operations and one MUFU rsqrt per
 // pair, bias2_* 18, bias1_* 17, bias_cond 18 on overlapping tiles and 17
-// elsewhere; the tensor-core variants 14 (FP32) plus 2 tf32
-// conversions, and two m16n8k8 per 128 pairs.  Bytes: 40 per body.
+// elsewhere; the tensor-core variants 14 (FP32) plus 2 tf32 conversions,
+// and two m16n8k8 per 128 pairs.  Bytes: 40 per body.
 //
-// Build: as forces.cu (ops/_build.py, library "probes").
+// Build: ops/_build.py, library "probes".
 
 #include <stdint.h>
 
-#include "pairs.cuh"
+#include "probe_layout.cuh"
 
 namespace {
 
@@ -94,89 +115,101 @@ enum Add { kNone, kPerPair, kConst };
 template <int V>
 constexpr bool kFloorByMax = V == kR2 || V == kBias2Max || V == kMxu2R2;
 
-// mj * inv of one pair; dx and dy are returned for the row sums.
+// mj * inv of one pair with column c = (xj, yj, mj, rj); dx and dy are
+// returned for the row sums.
 template <int A, bool kMaxEps>
 __device__ __forceinline__ float pair_scale(float xi, float yi, float ri,
-                                            float xj, float yj, float mj,
-                                            float rj, float add, float& dx,
+                                            float4 c, float add, float& dx,
                                             float& dy) {
-  dx = xj - xi;
+  dx = c.x - xi;
   if constexpr (A != kNone) dx = dx + add;
-  dy = yj - yi;
+  dy = c.y - yi;
   const float dsqr = dx * dx + dy * dy;
-  const float mind = ri + rj;
+  const float mind = ri + c.w;
   const float forced = fmaxf(dsqr, mind * mind);
   const float q = forced * forced * dsqr;
-  return mj * (kMaxEps ? rsqrtf(fmaxf(q, 1e-30f)) : rsqrtf(q + 1e-36f));
+  return c.z * nbody::rsqrt_t(kMaxEps ? fmaxf(q, 1e-30f) : q + 1e-36f);
 }
 
-// pairs.cuh::sweep_tile with the variant's dx.  `c` is the constant bias of
-// kConst; kPerPair reads bj from sb.
-template <int A, bool kMaxEps>
+// One staged tile against the thread's R rows, with the variant's dx.  `c`
+// is the constant bias of kConst; kPerPair reads bj from sb.
+template <int A, bool kMaxEps, int R>
 __device__ __forceinline__ void sweep_tile(
-    const float* __restrict__ sx, const float* __restrict__ sy,
-    const float* __restrict__ sm, const float* __restrict__ sr,
-    const float* __restrict__ sb, float xi, float yi, float ri, float bi,
-    float c, float& ax, float& ay) {
+    const float4* __restrict__ s, const float* __restrict__ sb,
+    const float (&xi)[R], const float (&yi)[R], const float (&ri)[R],
+    const float (&bi)[R], float c, float (&ax)[R], float (&ay)[R]) {
 #pragma unroll 8
   for (int t = 0; t < kBlock; ++t) {
-    float dx, dy;
-    const float add = A == kPerPair ? sb[t] - bi : c;
-    const float s = pair_scale<A, kMaxEps>(xi, yi, ri, sx[t], sy[t], sm[t],
-                                           sr[t], add, dx, dy);
-    ax += s * dx;
-    ay += s * dy;
+    const float4 col = s[t];
+    const float bj = A == kPerPair ? sb[t] : 0.f;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float dx, dy;
+      const float add = A == kPerPair ? bj - bi[r] : c;
+      const float sc = pair_scale<A, kMaxEps>(xi[r], yi[r], ri[r], col, add,
+                                              dx, dy);
+      ax[r] += sc * dx;
+      ay[r] += sc * dy;
+    }
   }
 }
 
-template <int V>
-__global__ void __launch_bounds__(kBlock) bias_probe_kernel(
-    const float* __restrict__ xi, const float* __restrict__ yi,
-    const float* __restrict__ mi, const float* __restrict__ ri,
-    const float* __restrict__ xj, const float* __restrict__ yj,
-    const float* __restrict__ mj, const float* __restrict__ rj, int64_t n,
-    int64_t tile_i, int64_t tile_j, float* __restrict__ xf,
-    float* __restrict__ yf) {
+template <int V, int R>
+__global__ void __cluster_dims__(1, probe::kSplit, 1)
+    __launch_bounds__(kBlock, probe::kMinBlocks) bias_probe_kernel(
+        const float* __restrict__ xi, const float* __restrict__ yi,
+        const float* __restrict__ mi, const float* __restrict__ ri,
+        const float* __restrict__ xj, const float* __restrict__ yj,
+        const float* __restrict__ mj, const float* __restrict__ rj,
+        int64_t n, int64_t tile_i, int64_t tile_j, float* __restrict__ xf,
+        float* __restrict__ yf) {
   constexpr bool kIndex = V == kBias2Max || V == kBias2Fma || V == kBiasCond;
-  __shared__ float sx[kBlock], sy[kBlock], sm[kBlock], sr[kBlock],
-      sb[kBlock];
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kBlock + threadIdx.x;
-  const float x0 = xi[i], y0 = yi[i], r0 = ri[i];
-  const float bi = static_cast<float>(i) * kBias;
+  __shared__ float4 s[2][kBlock];
+  __shared__ float sb[2][kBlock];
+  float x0[R], y0[R], r0[R], b0[R], ax[R] = {}, ay[R] = {};
+  probe::load_rows<R>(xi, n, x0);
+  probe::load_rows<R>(yi, n, y0);
+  probe::load_rows<R>(ri, n, r0);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    b0[r] = static_cast<float>(probe::row_of<R>(r)) * kBias;
+  }
+  // The start of the tile_i segment that holds all of the thread's rows.
+  const int64_t i = probe::row_of<R>(0);
   const int64_t row0 = i - i % tile_i;
-  float ax = 0.f, ay = 0.f;
-  for (int64_t j0 = 0; j0 < n; j0 += kBlock) {
-    const int64_t j = j0 + threadIdx.x;
-    sx[threadIdx.x] = xj[j];
-    sy[threadIdx.x] = yj[j];
-    sm[threadIdx.x] = mj[j];
-    sr[threadIdx.x] = rj[j];
-    if constexpr (kIndex) sb[threadIdx.x] = static_cast<float>(j) * kBias;
+  const probe::Part part = probe::part_of(n);
+  float4 next = probe::fetch(xj, yj, mj, rj, n, part.begin);
+  int buf = 0;
+  for (int64_t j0 = part.begin; j0 < part.end; j0 += kBlock, buf ^= 1) {
+    s[buf][threadIdx.x] = next;
+    if constexpr (kIndex) {
+      sb[buf][threadIdx.x] = static_cast<float>(j0 + threadIdx.x) * kBias;
+    }
     __syncthreads();
+    if (j0 + kBlock < part.end) {
+      next = probe::fetch(xj, yj, mj, rj, n, j0 + kBlock);
+    }
+    const float4* st = s[buf];
+    const float* sbt = sb[buf];
     if constexpr (V == kR2) {
-      sweep_tile<kNone, true>(sx, sy, sm, sr, sb, x0, y0, r0, bi, 0.f, ax,
-                              ay);
+      sweep_tile<kNone, true, R>(st, sbt, x0, y0, r0, b0, 0.f, ax, ay);
     } else if constexpr (V == kBias2Max || V == kBias2Fma) {
-      sweep_tile<kPerPair, kFloorByMax<V>>(sx, sy, sm, sr, sb, x0, y0, r0,
-                                           bi, 0.f, ax, ay);
+      sweep_tile<kPerPair, kFloorByMax<V>, R>(st, sbt, x0, y0, r0, b0, 0.f,
+                                              ax, ay);
     } else if constexpr (V == kBiasCond) {
       const int64_t col0 = j0 - j0 % tile_j;
       if (row0 < col0 + tile_j && col0 < row0 + tile_i) {
-        sweep_tile<kPerPair, false>(sx, sy, sm, sr, sb, x0, y0, r0, bi, 0.f,
-                                    ax, ay);
+        sweep_tile<kPerPair, false, R>(st, sbt, x0, y0, r0, b0, 0.f, ax,
+                                       ay);
       } else {
-        sweep_tile<kConst, false>(sx, sy, sm, sr, sb, x0, y0, r0, bi,
-                                  col0 > row0 ? kCBias : -kCBias, ax, ay);
+        sweep_tile<kConst, false, R>(st, sbt, x0, y0, r0, b0,
+                                     col0 > row0 ? kCBias : -kCBias, ax, ay);
       }
     } else {  // kBias1Const, kBias1Fma
-      sweep_tile<kConst, false>(sx, sy, sm, sr, sb, x0, y0, r0, bi, kCBias,
-                                ax, ay);
+      sweep_tile<kConst, false, R>(st, sbt, x0, y0, r0, b0, kCBias, ax, ay);
     }
-    __syncthreads();
   }
-  const float gmi = mi[i] * 1.1f;
-  xf[i] = ax * gmi;
-  yf[i] = ay * gmi;
+  probe::fold_store<R>(ax, ay, mi, n, xf, yf);
 }
 
 __device__ __forceinline__ uint32_t to_tf32(float v) {
@@ -197,7 +230,7 @@ __device__ __forceinline__ void mma_row_sums(float (&d)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(one), "r"(one));
 }
 
-// mxu2_r2 (kBias = false) and bias1_mxu2 (true).  Fragment layout of
+// mxu2_r2 (kBias1 = false) and bias1_mxu2 (true).  Fragment layout of
 // m16n8k8 tf32 (PTX ISA): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4),
 // a3 (g + 8, t + 4); c0, c1 row g and c2, c3 row g + 8, at columns 2t and
 // 2t + 1.  With B all ones every column holds the row sum, so c0 and c2
@@ -211,7 +244,7 @@ __global__ void __launch_bounds__(kBlock) bias_probe_mma_kernel(
     float* __restrict__ xf, float* __restrict__ yf) {
   constexpr int A = kBias1 ? kConst : kNone;
   constexpr bool kMaxEps = !kBias1;
-  __shared__ float sx[kBlock], sy[kBlock], sm[kBlock], sr[kBlock];
+  __shared__ float4 s[kBlock];
   const int lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   // The lane's two rows.
@@ -222,28 +255,24 @@ __global__ void __launch_bounds__(kBlock) bias_probe_mma_kernel(
   const float xb = xi[ib], yb = yi[ib], rb = ri[ib];
   float ax_a = 0.f, ay_a = 0.f, ax_b = 0.f, ay_b = 0.f;
   for (int64_t j0 = 0; j0 < n; j0 += kBlock) {
-    const int64_t j = j0 + threadIdx.x;
-    sx[threadIdx.x] = xj[j];
-    sy[threadIdx.x] = yj[j];
-    sm[threadIdx.x] = mj[j];
-    sr[threadIdx.x] = rj[j];
+    probe::stage(xj, yj, mj, rj, n, j0, s);
     __syncthreads();
     float cx[4] = {0.f, 0.f, 0.f, 0.f}, cy[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll 4
     for (int c0 = 0; c0 < kBlock; c0 += 8) {
+      // k = 0..3: (row a, col t), (row b, col t), (row a, col t + 4),
+      // (row b, col t + 4).
+      const float4 col[2] = {s[c0 + t], s[c0 + t + 4]};
       uint32_t fx[4], fy[4];
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        // k = 0..3: (row a, col t), (row b, col t), (row a, col t + 4),
-        // (row b, col t + 4).
-        const int col = c0 + t + (k >> 1) * 4;
         const bool row_b = k & 1;
         float dx, dy;
-        const float s = pair_scale<A, kMaxEps>(
-            row_b ? xb : xa, row_b ? yb : ya, row_b ? rb : ra, sx[col],
-            sy[col], sm[col], sr[col], kCBias, dx, dy);
-        fx[k] = to_tf32(s * dx);
-        fy[k] = to_tf32(s * dy);
+        const float sc = pair_scale<A, kMaxEps>(
+            row_b ? xb : xa, row_b ? yb : ya, row_b ? rb : ra, col[k >> 1],
+            kCBias, dx, dy);
+        fx[k] = to_tf32(sc * dx);
+        fy[k] = to_tf32(sc * dy);
       }
       mma_row_sums(cx, fx);
       mma_row_sums(cy, fy);
@@ -273,9 +302,10 @@ int launch(const float* xi, const float* yi, const float* mi,
         <<<static_cast<unsigned>(n / kMmaRows), kBlock, 0, stream>>>(
             xi, yi, mi, ri, xj, yj, mj, rj, n, xf, yf);
   } else {
-    bias_probe_kernel<V><<<static_cast<unsigned>(n / kBlock), kBlock, 0,
-                           stream>>>(xi, yi, mi, ri, xj, yj, mj, rj, n,
-                                     tile_i, tile_j, xf, yf);
+    bias_probe_kernel<V, probe::kRows>
+        <<<probe::grid(n), kBlock, 0, stream>>>(xi, yi, mi, ri, xj, yj, mj,
+                                                rj, n, tile_i, tile_j, xf,
+                                                yf);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,7 @@
-// Roofline probe for Hopper (sm_90a): P1, ablations of K1's pair loop.
+// Roofline probe for Hopper (sm_90a): P1, ablations of the fp32 pair loop.
 //
 // Replaces benchmarks/roofline_probe.py::make_kernel (the Pallas probe that
-// bench_variant times).  Each variant is K1's unbiased pair loop with part
+// bench_variant times).  Each variant is the unbiased pair loop with part
 // of its arithmetic taken out, so that the time each one saves shows which
 // resource bounds the loop.  The ablated variants compute wrong physics on
 // purpose: they exist to be timed.  For row body i of one set and column
@@ -15,34 +15,51 @@
 //   mem_only   inv = dx + dy + mj + rj                       (no dsqr)
 //   acc_i += mj * inv * (dx, dy);   F_i = acc_i * (mi * 1.1)
 //
-// `full` is K1's unbiased loop except for the de-NaN floor: the probe's
-// max(q, 1e-30) in place of K1's q + 1e-36, one FMNMX where K1 folds the
-// floor into an FMA.  `mem_only` still reads all four column values of a
-// pair (they all feed inv); `no_soften` has no use for rj, so its per-pair
-// shared-memory load of rj goes with the softening it ablates (the tile is
-// still staged).
+// `full` is K1's unbiased arithmetic except for the de-NaN floor: the
+// probe's max(q, 1e-30) in place of K1's q + 1e-36.  `mem_only`, `full`
+// and `no_rsqrt` read all four values of each staged column (one LDS.128);
+// `no_soften` has no use for rj and reads x, y and m only (an LDS.64 and an
+// LDS), so the load of rj goes with the softening it ablates.
 //
-// Layout: K1's (forces.cu and pairs.cuh), so that the ablations ablate the
-// CUDA K1's loop and not the TPU's: one thread per row body, blocks of
-// kBlock = 128 threads, 128-wide column tiles staged in shared memory, the
-// sum in registers, and a copy of pairs.cuh::sweep_tile with the variant's
-// arithmetic in place of K1's.  The Pallas probe's tile_i and tile_j do not
-// change P1's arithmetic; the launcher takes them so that P1 and P2 share
-// one C signature, and ignores them.  The wrapper
-// (benchmarks/roofline_probe.py) admits only n that is a multiple of 128, so
-// no row or column tile is ragged.
+// The rsqrt is the bare MUFU instruction (pairs.cuh::rsqrt_t), as in K1.
+// rsqrtf adds, without -ftz, a test for arguments below FLT_MIN (1.18e-38)
+// that rescales them; the argument here is max(q, 1e-30), never below
+// FLT_MIN (or +inf, or NaN from NaN inputs), so the test never fires and
+// rsqrt.approx.ftz.f32 returns rsqrtf's bits.  No other operation changes:
+// no -ftz, no --use_fast_math.
 //
-// Bound: operations.  `full` costs 16 FP32 operations (13 instructions, 3
-// of them FMAs) and one MUFU rsqrt per pair; each of the 8 input vectors is
-// read once and each of the 2 outputs written once, 40 bytes per body.  At
-// n = 65536 the operations take 1.03 ms at the 67 TFLOP/s FP32 peak, the
-// rsqrts 1.03 ms at 16 per clock per SM (1.98 GHz), the 13 FP32
-// instructions 1.67 ms at 128 lanes per clock per SM; the bytes 0.8 us.
+// Layout (csrc/probe_layout.cuh): R = 4 rows per thread in blocks of 128
+// threads, each staged float4 column used for all R rows, the tile staging
+// double-buffered, the columns split into S = 2 parts whose partials are
+// folded in rank order inside a thread block cluster.  The probes no longer
+// run K1's layout (one row per thread, no split, four separate staged
+// arrays, two barriers a tile): they differ from K1 in the rows per thread,
+// the split and its fold, and the staging, and so in the order each row is
+// summed, not in the pair arithmetic.  The Pallas probe's
+// tile_i and tile_j do not change P1's arithmetic; the launcher takes them
+// so that P1 and P2 share one C signature, and ignores them.  The wrapper
+// (benchmarks/roofline_probe.py) admits any n that is a multiple of 128.
 //
-// Build: as forces.cu (ops/_build.py, library "probes"); no
-// --use_fast_math.
+// Bound: operations by the FP32 peak, instruction issue on the card.
+// `full` costs 16 FP32 operations (13 instructions, 3 of them FMAs) and one
+// MUFU rsqrt per pair; each of the 8 input vectors is read once and each of
+// the 2 outputs written once, 40 bytes per body.  At n = 65536 the
+// operations take 1.03 ms at the 67 TFLOP/s FP32 peak, the bytes 0.8 us.
+// But each SM sub-partition issues one warp instruction per clock, and the
+// loop is 13 FP32 instructions, the MUFU, and the shared load and loop
+// overhead split over R pairs: 14.375 instructions per pair at R = 4
+// (benchmarks/sass_census.py), an issue bound of 1.85 ms at n = 65536 (132
+// SMs at 1.98 GHz), which the loop reaches at ~80%.  Time goes with
+// instructions per pair, so the layout shares what it can over R rows and
+// keeps each warp busy with R independent rows.  Tensor cores would only take
+// the two FFMAs of the row sums and need the terms converted (P2's mxu2_*
+// measure that); TMA or cp.async would save the tile's staging, ~0.08
+// issue slots per pair; Newton's-third-law folding has nothing to fold, as
+// rows and columns are different sets.
+//
+// Build: ops/_build.py, library "probes"; no --use_fast_math.
 
-#include "pairs.cuh"
+#include "probe_layout.cuh"
 
 namespace {
 
@@ -50,58 +67,71 @@ using nbody::kBlock;
 
 enum Variant { kFull = 0, kNoRsqrt = 1, kNoSoften = 2, kMemOnly = 3 };
 
-template <int V>
-__device__ __forceinline__ void sweep_tile(
-    const float* __restrict__ sx, const float* __restrict__ sy,
-    const float* __restrict__ sm, const float* __restrict__ sr, float xi,
-    float yi, float ri, float& ax, float& ay) {
+template <int V, int R>
+__device__ __forceinline__ void sweep_tile(const float4* __restrict__ s,
+                                           const float (&xi)[R],
+                                           const float (&yi)[R],
+                                           const float (&ri)[R],
+                                           float (&ax)[R], float (&ay)[R]) {
 #pragma unroll 8
   for (int t = 0; t < kBlock; ++t) {
-    const float dx = sx[t] - xi;
-    const float dy = sy[t] - yi;
-    float inv;
-    if constexpr (V == kMemOnly) {
-      inv = dx + dy + sm[t] + sr[t];
-    } else if constexpr (V == kNoSoften) {
-      const float dsqr = dx * dx + dy * dy;
-      inv = rsqrtf(fmaxf(dsqr * dsqr * dsqr, 1e-30f));
+    float4 c;
+    if constexpr (V == kNoSoften) {
+      const float2 xy = reinterpret_cast<const float2*>(s)[2 * t];
+      c = make_float4(xy.x, xy.y, reinterpret_cast<const float*>(s)[4 * t + 2],
+                      0.f);
     } else {
-      const float dsqr = dx * dx + dy * dy;
-      const float mind = ri + sr[t];
-      const float forced = fmaxf(dsqr, mind * mind);
-      const float q = fmaxf(forced * forced * dsqr, 1e-30f);
-      inv = V == kFull ? rsqrtf(q) : q * 1e-6f;
+      c = s[t];
     }
-    const float s = sm[t] * inv;
-    ax += s * dx;
-    ay += s * dy;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float dx = c.x - xi[r];
+      const float dy = c.y - yi[r];
+      float inv;
+      if constexpr (V == kMemOnly) {
+        inv = dx + dy + c.z + c.w;
+      } else if constexpr (V == kNoSoften) {
+        const float dsqr = dx * dx + dy * dy;
+        inv = nbody::rsqrt_t(fmaxf(dsqr * dsqr * dsqr, 1e-30f));
+      } else {
+        const float dsqr = dx * dx + dy * dy;
+        const float mind = ri[r] + c.w;
+        const float forced = fmaxf(dsqr, mind * mind);
+        const float q = fmaxf(forced * forced * dsqr, 1e-30f);
+        inv = V == kFull ? nbody::rsqrt_t(q) : q * 1e-6f;
+      }
+      const float sc = c.z * inv;
+      ax[r] += sc * dx;
+      ay[r] += sc * dy;
+    }
   }
 }
 
-template <int V>
-__global__ void __launch_bounds__(kBlock) roofline_probe_kernel(
-    const float* __restrict__ xi, const float* __restrict__ yi,
-    const float* __restrict__ mi, const float* __restrict__ ri,
-    const float* __restrict__ xj, const float* __restrict__ yj,
-    const float* __restrict__ mj, const float* __restrict__ rj, int64_t n,
-    float* __restrict__ xf, float* __restrict__ yf) {
-  __shared__ float sx[kBlock], sy[kBlock], sm[kBlock], sr[kBlock];
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kBlock + threadIdx.x;
-  const float x0 = xi[i], y0 = yi[i], r0 = ri[i];
-  float ax = 0.f, ay = 0.f;
-  for (int64_t j0 = 0; j0 < n; j0 += kBlock) {
-    const int64_t j = j0 + threadIdx.x;
-    sx[threadIdx.x] = xj[j];
-    sy[threadIdx.x] = yj[j];
-    sm[threadIdx.x] = mj[j];
-    sr[threadIdx.x] = rj[j];
+template <int V, int R>
+__global__ void __cluster_dims__(1, probe::kSplit, 1)
+    __launch_bounds__(kBlock, probe::kMinBlocks) roofline_probe_kernel(
+        const float* __restrict__ xi, const float* __restrict__ yi,
+        const float* __restrict__ mi, const float* __restrict__ ri,
+        const float* __restrict__ xj, const float* __restrict__ yj,
+        const float* __restrict__ mj, const float* __restrict__ rj,
+        int64_t n, float* __restrict__ xf, float* __restrict__ yf) {
+  __shared__ float4 s[2][kBlock];
+  float x0[R], y0[R], r0[R], ax[R] = {}, ay[R] = {};
+  probe::load_rows<R>(xi, n, x0);
+  probe::load_rows<R>(yi, n, y0);
+  probe::load_rows<R>(ri, n, r0);
+  const probe::Part part = probe::part_of(n);
+  float4 next = probe::fetch(xj, yj, mj, rj, n, part.begin);
+  int buf = 0;
+  for (int64_t j0 = part.begin; j0 < part.end; j0 += kBlock, buf ^= 1) {
+    s[buf][threadIdx.x] = next;
     __syncthreads();
-    sweep_tile<V>(sx, sy, sm, sr, x0, y0, r0, ax, ay);
-    __syncthreads();
+    if (j0 + kBlock < part.end) {
+      next = probe::fetch(xj, yj, mj, rj, n, j0 + kBlock);
+    }
+    sweep_tile<V, R>(s[buf], x0, y0, r0, ax, ay);
   }
-  const float gmi = mi[i] * 1.1f;
-  xf[i] = ax * gmi;
-  yf[i] = ay * gmi;
+  probe::fold_store<R>(ax, ay, mi, n, xf, yf);
 }
 
 template <int V>
@@ -109,9 +139,9 @@ int launch(const float* xi, const float* yi, const float* mi,
            const float* ri, const float* xj, const float* yj,
            const float* mj, const float* rj, int64_t n, float* xf,
            float* yf, cudaStream_t stream) {
-  roofline_probe_kernel<V><<<static_cast<unsigned>(n / kBlock), kBlock, 0,
-                             stream>>>(xi, yi, mi, ri, xj, yj, mj, rj, n, xf,
-                                       yf);
+  roofline_probe_kernel<V, probe::kRows>
+      <<<probe::grid(n), kBlock, 0, stream>>>(xi, yi, mi, ri, xj, yj, mj, rj,
+                                              n, xf, yf);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -143,6 +173,35 @@ int nbody_roofline_probe(int variant, const float* xi, const float* yi,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The row loops' layout as built: 0 rows per thread, 1 column split,
+// 2 the blocks per SM __launch_bounds__ keeps registers for.
+int nbody_probe_layout(int what) {
+  return what == 0   ? probe::kRows
+         : what == 1 ? probe::kSplit
+         : what == 2 ? probe::kMinBlocks
+                     : -1;
+}
+
+// The occupancy of the `full` row kernel (the others share its layout):
+// what 0, the blocks an SM can hold; 1, the clusters the card can hold at
+// once for a launch at n.  A negative value is a cudaError_t.
+int nbody_probe_occupancy(int what, int64_t n) {
+  const void* kernel = reinterpret_cast<const void*>(
+      &roofline_probe_kernel<kFull, probe::kRows>);
+  int v = 0;
+  cudaError_t err;
+  if (what == 0) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&v, kernel, kBlock,
+                                                        0);
+  } else {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = probe::grid(n);
+    cfg.blockDim = dim3(kBlock);
+    err = cudaOccupancyMaxActiveClusters(&v, kernel, &cfg);
+  }
+  return err == cudaSuccess ? v : -static_cast<int>(err);
 }
 
 // The probe library's copy of forces.cu's error-string function.

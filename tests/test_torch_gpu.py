@@ -10,9 +10,11 @@ against its plain version on the same card is held to 1e-5 * max|F| in fp32
 below 1e-6 * max|F|) and 1e-12 * max|F| in fp64.  The magnitude-spread case
 keeps the bounds of tests/test_accum.py; bf16 launches are bit-equal to the
 fp32 launch on the upcast inputs rounded once.  The probe kernels (P1, P2)
-at N=4096: 2e-5 * max|F| for the fp32 variants (chip_smoke.TOL), and for
-the two tensor-core variants, which round each term to tf32 (2^-11
-relative), the per-row bound |err_i| <= 2^-10 * |G m_i| * sum_j |term_ij|.
+at N=384, 1152 and 4096 against their plain versions in the kernels' order
+(``probe_forces_kernel_order``): 2e-5 * max|F| for the fp32 variants
+(chip_smoke.TOL), and for the two tensor-core variants, which round each
+term to tf32 (2^-11 relative), the per-row bound
+|err_i| <= 2^-10 * |G m_i| * sum_j |term_ij|.
 """
 
 import numpy as np
@@ -368,17 +370,25 @@ PROBE_CASES = [(name, v) for name, m in PROBES.items() for v in m.VARIANTS]
 
 
 def _probe_args(case, dev):
-    """(arrays on the card, tiles) for one probe input at N=4096."""
+    """(arrays on the card, tiles) for one probe input: N=4096, or N=384
+    and 1152, which neither the row block (512 rows) nor the column split
+    (``_probe.SPLIT`` parts of whole 128-column tiles) divides."""
     if case == "independent":
         return _on(probe_inputs(4096, 30), "float32", dev), {}
     if case == "square_coincident":
         return (_on(probe_inputs(4096, 31, square=True), "float32", dev),
                 dict(tile_i=128, tile_j=256))
+    if case == "ragged_384":
+        return (_on(probe_inputs(384, 32), "float32", dev),
+                dict(tile_i=128, tile_j=128))
+    if case == "ragged_1152_square":
+        return (_on(probe_inputs(1152, 33, square=True), "float32", dev),
+                dict(tile_i=128, tile_j=384))
     raise ValueError(case)
 
 
 def _assert_probe_close(module, variant, got, args, tiles):
-    *want, xmag, ymag = module.probe_forces_reference(
+    *want, xmag, ymag = module.probe_forces_kernel_order(
         variant, *args, magnitudes=True, **tiles)
     scale = max(float(w.abs().max()) for w in want)
     for g, w, mag in zip(got, want, (xmag, ymag)):
@@ -391,7 +401,8 @@ def _assert_probe_close(module, variant, got, args, tiles):
 
 
 @pytest.mark.parametrize("case", ["independent", "square_coincident",
-                                  "fed_back"])
+                                  "fed_back", "ragged_384",
+                                  "ragged_1152_square"])
 @pytest.mark.parametrize("probe, variant", PROBE_CASES)
 def test_probe_kernel_matches_reference(probe, variant, case, dev):
     module = PROBES[probe]
@@ -407,6 +418,17 @@ def test_probe_kernel_matches_reference(probe, variant, case, dev):
     _assert_probe_close(module, variant, got, args, tiles)
 
 
+@pytest.mark.parametrize("probe, variant", PROBE_CASES)
+def test_probe_forces_counts_one_launch_per_call(probe, variant, dev):
+    module = PROBES[probe]
+    args, tiles = _probe_args("ragged_384", dev)
+    before = module.probe_forces.launches
+    xf, yf = module.probe_forces(variant, *args, **tiles)
+    torch.cuda.synchronize()
+    assert module.probe_forces.launches == before + 1
+    assert xf.device == dev and xf.shape == yf.shape == (384,)
+
+
 @pytest.mark.parametrize("probe", sorted(PROBES))
 def test_probe_forces_launches_on_card_never_plain(probe, dev, monkeypatch):
     module = PROBES[probe]
@@ -415,6 +437,7 @@ def test_probe_forces_launches_on_card_never_plain(probe, dev, monkeypatch):
         raise AssertionError("the plain version ran for a CUDA tensor")
 
     monkeypatch.setattr(_probe, "reference", plain)
+    monkeypatch.setattr(_probe, "kernel_order", plain)
     args, _ = _probe_args("independent", dev)
     before = module.probe_forces.launches
     for variant in module.VARIANTS:

@@ -1,10 +1,11 @@
 """The probes P1 (``benchmarks.roofline_probe``) and P2
 (``benchmarks.bias_variants_probe``) of the port: their plain PyTorch
-versions against the JAX package's Pallas probe kernels, run as Pallas runs
-on the CPU (``interpret=True``, with the specs of
-``benchmarks/roofline_probe.py:75`` and
+versions, in the Pallas probes' summation order and in the CUDA kernels'
+(column parts folded in rank order), against the JAX package's Pallas
+probe kernels, run as Pallas runs on the CPU (``interpret=True``, with the
+specs of ``benchmarks/roofline_probe.py:75`` and
 ``benchmarks/bias_variants_probe.py:113``), their entry points without a
-card, and the SASS census of the pair loops on a small listing.
+card, and the SASS census of the pair loops on small listings.
 
 Inputs are made with numpy from a seed and handed to both sides: N=512,
 uniform in [1, 2) as the probes draw them, with independent rows and
@@ -16,7 +17,9 @@ only the square input tells the variants apart.
 
 Tolerance: 1e-6 * max|F| in fp32.  Both sides compute each pair term with
 the same operations in the same order; they sum the terms of a tile in
-another order (measured: at most 2.2e-7 * max|F| over all cases).
+another order (measured: at most 2.2e-7 * max|F| over all cases at N=512),
+and the kernels' order adds the column parts in another grouping (at most
+3.3e-7 * max|F| from the Pallas order at N=4096).
 """
 
 import os
@@ -38,6 +41,7 @@ from parallel_nbody_tpu_torch.benchmarks import roofline_probe as troof
 from torch_cases import PROBE_COINCIDENT, probe_inputs
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(REPO, "parallel_nbody_tpu_torch", "csrc")
 sys.path.insert(0, os.path.join(REPO, "benchmarks"))
 import bias_variants_probe as jbias  # noqa: E402
 import roofline_probe as jroof  # noqa: E402
@@ -67,6 +71,12 @@ def _pallas(make_kernel, variant, arrays, tile_i, tile_j):
 
 def _port(module, variant, arrays, tile_i, tile_j):
     return [t.numpy() for t in module.probe_forces(
+        variant, *(torch.from_numpy(a) for a in arrays), tile_i=tile_i,
+        tile_j=tile_j)]
+
+
+def _kernel_order(module, variant, arrays, tile_i, tile_j):
+    return [t.numpy() for t in module.probe_forces_kernel_order(
         variant, *(torch.from_numpy(a) for a in arrays), tile_i=tile_i,
         tile_j=tile_j)]
 
@@ -109,6 +119,79 @@ def test_plain_matches_pallas_square_coincident(probe, variant):
     arrays = probe_inputs(N, 2, square=True)
     _assert_close(_port(tmod, variant, arrays, 128, 256),
                   _pallas(jmod.make_kernel, variant, arrays, 128, 256))
+
+
+@pytest.mark.parametrize("n, seed, square, tile_i, tile_j", [
+    (4096, 6, False, 128, 256), (4096, 6, False, 256, 128),
+    (4096, 7, True, 128, 256)])
+@pytest.mark.parametrize("probe, variant", CASES)
+def test_kernel_order_matches_pallas(probe, variant, n, seed, square, tile_i,
+                                     tile_j):
+    """The plain version in the kernels' order (the 32 column tiles in
+    SPLIT parts, each folded in order, the parts folded in rank order)
+    against the Pallas probe at N=4096: only the summation order differs."""
+    jmod, tmod = PROBES[probe]
+    arrays = probe_inputs(n, seed, square=square)
+    _assert_close(_kernel_order(tmod, variant, arrays, tile_i, tile_j),
+                  _pallas(jmod.make_kernel, variant, arrays, tile_i, tile_j))
+
+
+@pytest.mark.parametrize("n, tile_j", [(384, 128), (1152, 384)])
+@pytest.mark.parametrize("probe, variant", CASES)
+def test_kernel_order_at_ragged_n(probe, variant, n, tile_j):
+    """n = 384 and 1152 leave a row block of 128 R = 512 rows part empty,
+    and their 3 and 9 column tiles split into SPLIT parts leave the last
+    part short: the kernel order still sums every column once (square input
+    with coincident bodies, against the Pallas order)."""
+    tmod = PROBES[probe][1]
+    assert n % (_probe.TILE * _probe.ROWS)
+    assert (n // _probe.TILE) % _probe.SPLIT
+    arrays = probe_inputs(n, 8, square=True)
+    want = [t.numpy() for t in tmod.probe_forces_reference(
+        variant, *(torch.from_numpy(a) for a in arrays), tile_i=128,
+        tile_j=tile_j)]
+    _assert_close(_kernel_order(tmod, variant, arrays, 128, tile_j), want)
+
+
+def test_kernel_order_folds_parts_in_rank_order():
+    """At N=1024 with split 2 the kernels' order is (tiles 0-3) + (tiles
+    4-7), each folded tile by tile; the tensor-core variants take no
+    split."""
+    arrays = [torch.from_numpy(a) for a in probe_inputs(1024, 9)]
+    xf, yf = _probe.kernel_order("full", arrays, 128, 128, 2)
+    px, py, _ = _probe._tile_sums("full", arrays, 128, 128, 128, False)
+    want = []
+    for p in (px, py):
+        halves = [torch.zeros(1024), torch.zeros(1024)]
+        for t in range(8):
+            halves[t // 4] = halves[t // 4] + p[:, t]
+        want.append((halves[0] + halves[1]) * (arrays[2] * _probe.GRAVITY))
+    assert torch.equal(xf, want[0]) and torch.equal(yf, want[1])
+    assert [_probe.split_of(v) for v in tbias.VARIANTS] == [
+        _probe.SPLIT] * 6 + [1, 1]
+
+
+def test_layout_constants_match_the_header():
+    """_probe.ROWS and SPLIT, which the plain version's order assumes, are
+    the defaults of csrc/probe_layout.cuh."""
+    with open(os.path.join(CSRC, "probe_layout.cuh")) as f:
+        text = f.read()
+    for macro, value in (("NBODY_PROBE_ROWS", _probe.ROWS),
+                         ("NBODY_PROBE_SPLIT", _probe.SPLIT)):
+        assert "#define %s %d\n" % (macro, value) in text
+
+
+def test_build_hashes_every_header_and_the_defines():
+    """A change to any header under csrc/, or another layout's defines,
+    builds a new library instead of loading a stale one."""
+    from parallel_nbody_tpu_torch.ops import _build
+    headers = {f for f in os.listdir(CSRC) if f.endswith(".cuh")}
+    assert {os.path.basename(h) for h in _build.HEADERS} == headers
+    sources = tuple(os.path.join(CSRC, f)
+                    for f in _build.LIBRARIES["probes"][0])
+    assert _build._source_hash(sources, _build.NVCC_FLAGS) != \
+        _build._source_hash(sources, _build.NVCC_FLAGS
+                            + ("-DNBODY_PROBE_ROWS=2",))
 
 
 @pytest.mark.parametrize("variant", [v for v in tbias.VARIANTS if v != "r2"])
@@ -181,8 +264,8 @@ def test_probe_forces_on_cpu_runs_plain_version(probe):
     before = tmod.probe_forces.launches
     for variant in tmod.VARIANTS:
         got = tmod.probe_forces(variant, *arrays, tile_i=128, tile_j=128)
-        want = tmod.probe_forces_reference(variant, *arrays, tile_i=128,
-                                           tile_j=128)
+        want = tmod.probe_forces_kernel_order(variant, *arrays, tile_i=128,
+                                              tile_j=128)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert tmod.probe_forces.launches == before
 
@@ -226,6 +309,8 @@ def test_probe_forces_rejects(probe, bad):
         tmod.probe_forces(variant, *arrays, **kw)
     with pytest.raises((TypeError, ValueError)):
         tmod.probe_forces_reference(variant, *arrays, **kw)
+    with pytest.raises((TypeError, ValueError)):
+        tmod.probe_forces_kernel_order(variant, *arrays, **kw)
 
 
 @pytest.mark.parametrize("probe", sorted(PROBES))
@@ -284,6 +369,37 @@ _LISTING = """
 """
 
 
+def _probe_listing(kernel, args, body):
+    """A listing of one probe kernel (template arguments ``args`` as
+    mangled, e.g. Li0ELi4 for <0, 4>) whose inner loop holds ``body`` (a
+    list of instructions) and its backward branch, between two barriers of
+    the tile loop."""
+    lines = ["\tFunction : _ZN50_GLOBAL__N__85c3eed4_17_roofline_probe_cu_"
+             "e431cdf5%d%sI%sEEEvPKfS2_lPfS3_" % (len(kernel), kernel, args),
+             "        /*0000*/ BAR.SYNC.DEFER_BLOCKING 0x0 ;"]
+    for k, op in enumerate(body + ["@P1 BRA 0x10"]):
+        lines.append("        /*%04x*/ %s ;" % (0x10 * (k + 1), op))
+    lines.append("        /*%04x*/ BAR.SYNC.DEFER_BLOCKING 0x0 ;"
+                 % (0x10 * (len(body) + 2)))
+    return "\n".join(lines)
+
+
+def _row_loop(rows=4, fsetp=0, mufu=True, lds="LDS.128", dropped=0):
+    """The body of a scalar probe loop over 8 columns: per column one shared
+    load (none for the first ``dropped``), per pair 13 FP32 instructions
+    and a MUFU; per pass two loop instructions."""
+    body = []
+    for column in range(8):
+        if column >= dropped:
+            body.append("%s R8, [UR4+0x10]" % lds)
+        for _ in range(rows):
+            body += ["FADD R9, R8, -R3"] * 4 + ["FMUL R7, R9, R9"] * 5
+            body += ["FFMA R7, R9, R9, R7"] * 3 + ["FMNMX R7, R7, R5, !PT"]
+            body += ["MUFU.RSQ R4, R7"] if mufu else []
+    return body + ["FSETP.GEU.AND P0, PT, R7, 1.1754943508222875079e-38, PT"]\
+        * fsetp + ["UIADD3 UR4, UR4, 0x80, URZ"]
+
+
 def test_sass_census_counts_the_inner_loop():
     from parallel_nbody_tpu_torch.benchmarks import sass_census
     rows = sass_census.census(_LISTING)
@@ -299,6 +415,73 @@ def test_sass_census_counts_the_inner_loop():
     assert sass_census.kernel_name(
         "_ZN41_GLOBAL__N__7f641550_9_forces_cu_a6310b9419block_forces_"
         "kernelIfLb0EEEvPKT_") == "block_forces_kernel<fLb0>"
+
+
+@pytest.mark.parametrize("rows", [2, 4])
+def test_sass_census_counts_the_inner_loop_of_r_rows(rows):
+    """The redesigned loop: 8 columns of R rows a pass, one LDS.128 a
+    column, 13 FP32 instructions and a MUFU a pair, 2 of overhead."""
+    from parallel_nbody_tpu_torch.benchmarks import sass_census
+    (row,) = sass_census.census(_probe_listing(
+        "roofline_probe_kernel", "Li0ELi%d" % rows, _row_loop(rows=rows)))
+    name, start, end, pairs, ops = row
+    assert (name, start, pairs) == (
+        "roofline_probe_kernel<Li0ELi%d>" % rows, 0x10, 8 * rows)
+    assert ops["LDS.128"] == 8 and ops["MUFU"] == pairs
+    assert sass_census.floats_loaded(ops) == 4 * pairs // rows
+    assert sass_census.instr_per_pair(row) == (8 + pairs * 14 + 2) / pairs
+    assert sass_census.probe_loop_faults(row) == []
+    assert sass_census.pairs_per_pass(
+        "bias_probe_kernel<Li3ELi%d>" % rows) == 8 * rows
+    assert sass_census.pairs_per_pass("bias_probe_mma_kernel<Lb1>") == 16
+
+
+@pytest.mark.parametrize("kernel, variant, loop, fault", [
+    ("roofline_probe_kernel", 0, dict(), None),
+    ("roofline_probe_kernel", 0, dict(dropped=1), "shared floats"),
+    ("roofline_probe_kernel", 0, dict(lds="LDS.64"), "shared floats"),
+    ("roofline_probe_kernel", 1, dict(mufu=False), None),
+    ("roofline_probe_kernel", 0, dict(mufu=False), "MUFU"),
+    ("roofline_probe_kernel", 2, dict(lds="LDS.64"), "shared floats"),
+    ("roofline_probe_kernel", 3, dict(mufu=False, lds="LDS"),
+     "shared floats"),
+    ("bias_probe_kernel", 3, dict(), None),
+    ("bias_probe_kernel", 0, dict(fsetp=1), "FSETP"),
+    ("bias_probe_kernel", 5, dict(rows=2), "MUFU"),
+    ("bias_probe_mma_kernel", 0, dict(rows=2, fsetp=32), None),
+    ("bias_probe_mma_kernel", 1, dict(rows=2, fsetp=48), "FSETP"),
+])
+def test_sass_census_probe_loop_faults(kernel, variant, loop, fault):
+    """probe_loop_faults passes the intended loop and catches a dropped
+    column load (7 LDS.128 for 8 columns, or a narrower load), a pass of
+    fewer rows than the kernel's R, and rsqrtf's FSETP; the tensor-core
+    kernel (16 pairs a pass) may hold one FSETP for each of its two tf32
+    conversions a pair, and no more."""
+    from parallel_nbody_tpu_torch.benchmarks import sass_census
+    args = ("Lb%d" % variant if kernel == "bias_probe_mma_kernel"
+            else "Li%dELi4" % variant)
+    (row,) = sass_census.census(_probe_listing(kernel, args,
+                                               _row_loop(**loop)))
+    faults = sass_census.probe_loop_faults(row)
+    if fault is None:
+        assert faults == []
+    else:
+        assert len(faults) == 1 and fault in faults[0]
+
+
+def test_ptxas_registers_reads_the_build_log():
+    from parallel_nbody_tpu_torch.benchmarks import sass_census
+    log = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__85c3eed4_17_roofline_probe_cu_e431cdf521roofline_probe_kernelILi0ELi4EEEvPKfS2_lPfS3_' for 'sm_90a'
+ptxas info    : Function properties for _ZN50_GLOBAL__N__85c3eed4_17_roofline_probe_cu_e431cdf521roofline_probe_kernelILi0ELi4EEEvPKfS2_lPfS3_
+    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 6144 bytes smem
+ptxas info    : Compiling entry function '_ZN4_GLOBAL__17bias_probe_mma_kernelILb1EEEvPKf' for 'sm_90a'
+ptxas info    : Used 40 registers, used 1 barriers, 2048 bytes smem
+"""
+    assert sass_census.ptxas_registers(log) == {
+        "roofline_probe_kernel<Li0ELi4>": (64, 8),
+        "bias_probe_mma_kernel<Lb1>": (40, 0)}
 
 
 def _force_listing(loops):

@@ -90,6 +90,7 @@ BIG_RUNS = (("fp32", []), ("fp32 compensated", ["--accum=compensated"]),
             ("bf16", ["--dtype=bfloat16"]))
 K1, K2 = "block_forces", "block_forces_streamed"
 PROBE_N, PROBE_STEPS = 65536, 20  # both probe drivers' defaults
+PROBE_TILE = 1024  # P2's default tile_i and tile_j, used for the timings
 TOL_PROBE_MAIN = 4e-5  # fp32 probe variants at PROBE_N (see the docstring)
 TF32_REL = 2.0 ** -10
 # Published peaks of one H100 SXM at 700 W: FP32 outside the tensor cores,
@@ -175,22 +176,29 @@ def phase_build():
 
 
 def _probe_layout(lib):
-    """Prints the probes' row-loop layout as built: rows per thread, column
-    split, whether the fold is a thread block cluster, and each probe
-    kernel's registers and spill stores from ptxas."""
+    """Prints the probes' row-loop layout: rows per thread, as built (ptxas
+    compiled the row kernels with R = ``_probe.ROWS`` as their last template
+    argument, or this raises), the column split and its fold
+    (``_probe.SPLIT``, which a CPU test holds to csrc/probe_layout.cuh),
+    and each probe kernel's registers and spill stores from ptxas."""
     from parallel_nbody_tpu_torch.benchmarks import _probe, sass_census
-    _probe.library()  # raises unless built in the plain version's layout
-    rows, split, min_blocks = _probe.layout(lib)
-    print("probe layout: R=%d rows per thread, S=%d column parts, fold %s, "
-          "registers kept for %d blocks per SM; at N=%d the full kernel "
-          "holds %d blocks per SM and %d clusters at once"
-          % (rows, split, "in a thread block cluster of %d" % split
-             if split > 1 else "none", min_blocks, PROBE_N,
-             lib.cdll.nbody_probe_occupancy(0, PROBE_N),
-             lib.cdll.nbody_probe_occupancy(1, PROBE_N)))
+    from parallel_nbody_tpu_torch.benchmarks import bias_variants_probe as p2
+    from parallel_nbody_tpu_torch.benchmarks import roofline_probe as p1
     regs = sass_census.ptxas_registers(lib.build_log)
     if not regs:
         print("probe kernels: no ptxas report (library loaded as built)")
+    else:
+        missing = [k for k in (sass_census.probe_kernel_name(m.NAME, v)
+                               for m in (p1, p2) for v in m.VARIANTS)
+                   if k not in regs]
+        if missing:
+            raise AssertionError("ptxas compiled no %s: the probes library "
+                                 "was not built with R=%d" % (missing,
+                                                             _probe.ROWS))
+    print("probe layout: R=%d rows per thread%s, S=%d column parts, fold %s"
+          % (_probe.ROWS, " (as built)" if regs else "", _probe.SPLIT,
+             "in a thread block cluster of %d" % _probe.SPLIT
+             if _probe.SPLIT > 1 else "none"))
     for name, (count, spill) in sorted(regs.items()):
         print("probe kernel %-34s %3d registers, %d bytes spill stores"
               % (name, count, spill))
@@ -762,7 +770,8 @@ def phase_probes(dev):
     events = {}
     for module in (p1, p2):
         for variant in module.VARIANTS:
-            ms = _time_ms(lambda: module.probe_forces(variant, *big), 10)
+            ms = _time_ms(lambda: module.probe_forces(
+                variant, *big, tile_i=PROBE_TILE, tile_j=PROBE_TILE), 10)
             events[module.NAME, variant] = ms
             print("time N=%d events %-19s %-11s %.6f ms (%.4f of K1 "
                   "unbiased)" % (PROBE_N, module.NAME, variant, ms,
@@ -786,8 +795,8 @@ def _sass_census():
     column load kept (`full`, `no_rsqrt` and `mem_only` read all four
     values of each column, `no_soften` three).  Returns {(kernel, role):
     instructions per pair} of K1's and K2's fp32 loops (plain accum) and
-    {(kernel, "probe"): the same} of the probe kernels' loops (the shortest
-    of bias_cond's two)."""
+    {(kernel, "probe"): sorted instructions per pair of each loop} of the
+    probe kernels (bias_cond has two)."""
     from parallel_nbody_tpu_torch.benchmarks import bias_variants_probe as p2
     from parallel_nbody_tpu_torch.benchmarks import roofline_probe as p1
     from parallel_nbody_tpu_torch.benchmarks import sass_census
@@ -818,31 +827,18 @@ def _sass_census():
                 if faults:
                     raise AssertionError("%s loop %x: %s"
                                          % (name, start, "; ".join(faults)))
-                ipp[name, "probe"] = min(
-                    ipp.get((name, "probe"), float("inf")),
-                    sass_census.instr_per_pair(row))
+                ipp[name, "probe"] = tuple(sorted(
+                    ipp.get((name, "probe"), ())
+                    + (sass_census.instr_per_pair(row),)))
     missing = [(k, r) for k in sass_census.FORCE_KERNELS
                for r in sass_census.ROLES if (k, r) not in ipp]
     missing += [(k, "probe") for k in (
-        _probe_kernel(m.NAME, v) for m in (p1, p2) for v in m.VARIANTS)
+        sass_census.probe_kernel_name(m.NAME, v)
+        for m in (p1, p2) for v in m.VARIANTS)
         if (k, "probe") not in ipp]
     if missing:
         raise AssertionError("sass census: no loop for %s" % missing)
     return ipp
-
-
-def _probe_kernel(probe, variant):
-    """The census's name of the kernel a probe variant launches."""
-    from parallel_nbody_tpu_torch.benchmarks import _probe
-    from parallel_nbody_tpu_torch.benchmarks import bias_variants_probe as p2
-    from parallel_nbody_tpu_torch.benchmarks import roofline_probe as p1
-    if variant in _probe.TF32_VARIANTS:
-        return "bias_probe_mma_kernel<Lb%d>" % (variant == "bias1_mxu2")
-    if probe == p1.NAME:
-        return "roofline_probe_kernel<Li%dELi%d>" % (
-            p1.VARIANTS.index(variant), _probe.ROWS)
-    return "bias_probe_kernel<Li%dELi%d>" % (p2.VARIANTS.index(variant),
-                                             _probe.ROWS)
 
 
 def _issue_report(ipp, issue_hz, times, times_big, probe_events):
@@ -850,7 +846,12 @@ def _issue_report(ipp, issue_hz, times, times_big, probe_events):
     its loops (instructions per pair from the census, at the maximum SM
     clock), the biased/unbiased ratio, and the biased-unbiased gap beside
     any_coincident's time; then every probe variant's time at PROBE_N
-    (CUDA events) beside its loop's issue bound."""
+    (CUDA events, tiles PROBE_TILE) beside its loop's issue bound.  For
+    bias_cond, whose kernel runs a constant-bias loop on all but the
+    overlapping tiles and a per-pair loop on those (the PROBE_TILE-wide
+    diagonal blocks, PROBE_TILE / PROBE_N of the pairs), both loops are
+    printed and the bound takes their count weighted by those pairs."""
+    from parallel_nbody_tpu_torch.benchmarks import sass_census
     for kernel, label, n, t_off, t_on, t_any in (
             ("block_forces_kernel", "K1", MAIN_N, times["kernel"],
              times["kernel_biased"], times["any_coincident"]),
@@ -874,13 +875,22 @@ def _issue_report(ipp, issue_hz, times, times_big, probe_events):
                         100 * bound["constant bias"] / t_on))
         print(line)
     for (probe, variant), ms in probe_events.items():
-        kernel = _probe_kernel(probe, variant)
+        kernel = sass_census.probe_kernel_name(probe, variant)
         if (kernel, "probe") not in ipp:
             continue
-        bound = ipp[kernel, "probe"] * PROBE_N ** 2 / WARP / issue_hz * 1e3
-        print("issue %s %s N=%d: %.6f ms, issue bound %.3f instr/pair %.6f "
-              "ms (%.1f%% of the issue rate)"
-              % (probe, variant, PROBE_N, ms, ipp[kernel, "probe"], bound,
+        loops = ipp[kernel, "probe"]
+        count, note = loops[0], ""
+        if len(loops) == 2:
+            per_pair = PROBE_TILE / PROBE_N
+            count = loops[0] * (1 - per_pair) + loops[1] * per_pair
+            note = (" (constant-bias loop %.3f, per-pair loop %.3f on %.6f "
+                    "of the pairs)" % (loops[0], loops[1], per_pair))
+        elif len(loops) != 1:
+            raise AssertionError("%s: %d pair loops" % (kernel, len(loops)))
+        bound = count * PROBE_N ** 2 / WARP / issue_hz * 1e3
+        print("issue %s %s N=%d: %.6f ms, issue bound %.3f instr/pair%s "
+              "%.6f ms (%.1f%% of the issue rate)"
+              % (probe, variant, PROBE_N, ms, count, note, bound,
                  100 * bound / ms))
 
 

@@ -21,7 +21,6 @@ Then ``F_i = acc_i * (m_i * 1.1)``.
 
 from __future__ import annotations
 
-import functools
 import subprocess
 import time
 
@@ -193,30 +192,11 @@ def kernel_order(variant, tensors, tile_i, tile_j, split, magnitudes=False):
     return _finish(ax, ay, tensors[2], mag, magnitudes)
 
 
-def layout(lib):
-    """(rows per thread, column split, blocks per SM kept registers for) of
-    a built probes library's row loops."""
-    return tuple(lib.cdll.nbody_probe_layout(k) for k in (0, 1, 2))
-
-
-@functools.cache
-def library():
-    """The probes library as the wrappers run it; raises if its layout is
-    not (ROWS, SPLIT), which ``kernel_order`` assumes."""
+def launch(name, fn_name, variant_index, tensors, tile_i, tile_j):
+    """Launch the probe kernel ``fn_name`` of the probes library on the
+    device's current stream into fresh outputs (never aliased with an
+    input); raise if the launch was refused."""
     lib = _build.load("probes")
-    if layout(lib)[:2] != (ROWS, SPLIT):
-        raise RuntimeError("the probes library was built with layout %s, "
-                           "not (ROWS, SPLIT) = %s"
-                           % (layout(lib)[:2], (ROWS, SPLIT)))
-    return lib
-
-
-def launch(name, fn_name, variant_index, tensors, tile_i, tile_j, lib=None):
-    """Launch the probe kernel ``fn_name`` of the probes library (``lib``,
-    by default ``library()``) on the device's current stream into fresh
-    outputs (never aliased with an input); raise if the launch was
-    refused."""
-    lib = library() if lib is None else lib
     dev = tensors[0].device
     xf = torch.empty_like(tensors[0])
     yf = torch.empty_like(tensors[0])

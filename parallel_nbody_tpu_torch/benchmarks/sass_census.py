@@ -25,17 +25,23 @@ import subprocess
 import sys
 
 from ..ops import _build
+from . import _probe
+from . import bias_variants_probe as p2
+from . import roofline_probe as p1
 
 # Pairs one pass of each kernel's inner loop covers: the force kernels
 # unroll the tile loop 8 times (one row per thread); the probes' row
 # kernels unroll it 8 columns deep over their R rows per thread, R being
-# the last template argument (``roofline_probe_kernel<Li0ELi4>``); a lane
-# of the tensor-core kernel computes 4 pairs for each of the 4 unrolled
-# 8-column chunks.
+# the last template argument (``roofline_probe_kernel<Li0ELi4>``, see
+# ``probe_kernel_name``); a lane of the tensor-core kernel computes 4 pairs
+# for each of the 4 unrolled 8-column chunks.
 _UNROLL = 8
 _MMA_PAIRS = 16
 _PROBE_ROW_KERNEL = re.compile(
     r"(roofline_probe_kernel|bias_probe_kernel)<Li(\d+)ELi(\d+)>")
+# probe NAME -> (its module, its row kernel's template).
+_PROBE_ROW_KERNELS = {p1.NAME: (p1, "roofline_probe_kernel"),
+                      p2.NAME: (p2, "bias_probe_kernel")}
 # Opcodes of the FP32 pipe, counted together.
 FP32 = ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL")
 _LDS_FLOATS = {"LDS": 1, "LDS.64": 2, "LDS.128": 4}
@@ -56,6 +62,19 @@ def kernel_name(mangled: str) -> str:
     ``block_forces_kernel<fLb0>``."""
     m = _KERNEL.search(mangled)
     return "%s<%s>" % m.groups() if m else mangled
+
+
+def probe_kernel_name(probe: str, variant: str) -> str:
+    """The ``kernel_name`` of the kernel that ``variant`` of ``probe`` (a
+    probe module's NAME) launches: a row kernel templated on the variant's
+    index and the rows per thread (``_probe.ROWS``), e.g.
+    ``roofline_probe_kernel<Li0ELi4>``, or the tensor-core kernel,
+    ``bias_probe_mma_kernel<Lb1>`` for ``bias1_mxu2``."""
+    if variant in _probe.TF32_VARIANTS:
+        return "bias_probe_mma_kernel<Lb%d>" % (variant == "bias1_mxu2")
+    module, template = _PROBE_ROW_KERNELS[probe]
+    return "%s<Li%dELi%d>" % (template, module.VARIANTS.index(variant),
+                              _probe.ROWS)
 
 
 def functions(sass: str):

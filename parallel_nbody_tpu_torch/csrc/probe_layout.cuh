@@ -35,8 +35,9 @@
 // no atomics, and a fixed order: per row, ((p0 + p1) + p2) + ..., each p a
 // sequential sum over its part's columns (_probe.kernel_order states it).
 //
-// Why R = 4 and S = 2 (benchmarks/probe_layouts.py on an H100 80GB HBM3 at
-// 700 W, n = 65536; PERF.md has the table).  R = 4 shares the LDS.128 and
+// Why R = 4 and S = 2 (a sweep on an H100 80GB HBM3 at 700 W, n = 65536,
+// run by building with other values of the three constants below; PERF.md
+// has the table).  R = 4 shares the LDS.128 and
 // the loop overhead over 4 pairs: 14.375 instructions per pair for `full`
 // against 15.375 at R = 1 and 14.688 at R = 2.  Four independent rows per
 // thread give each warp the latency hiding that more warps would: with 2
@@ -47,11 +48,7 @@
 // they are spread less evenly over the SMs); S = 1 (128 blocks, one warp
 // per scheduler) ran at 67%.  kMinBlocks = 8 caps the registers at 64 a
 // thread without spills; more registers (80 at 4) ran slower.
-//
-// A build may set NBODY_PROBE_ROWS, NBODY_PROBE_SPLIT and
-// NBODY_PROBE_MIN_BLOCKS (-D) to measure another layout
-// (benchmarks/probe_layouts.py); the wrappers run the defaults, which
-// benchmarks/_probe.py's ROWS and SPLIT mirror.
+// benchmarks/_probe.py's ROWS and SPLIT mirror kRows and kSplit.
 
 #pragma once
 
@@ -60,28 +57,18 @@
 
 #include "pairs.cuh"
 
-#ifndef NBODY_PROBE_ROWS
-#define NBODY_PROBE_ROWS 4
-#endif
-#ifndef NBODY_PROBE_SPLIT
-#define NBODY_PROBE_SPLIT 2
-#endif
-#ifndef NBODY_PROBE_MIN_BLOCKS
-#define NBODY_PROBE_MIN_BLOCKS 8
-#endif
-
 namespace probe {
 
 using nbody::kBlock;
 
-constexpr int kRows = NBODY_PROBE_ROWS;
-constexpr int kSplit = NBODY_PROBE_SPLIT;
+constexpr int kRows = 4;
+constexpr int kSplit = 2;
 static_assert(kRows == 1 || kRows == 2 || kRows == 4,
               "a warp's 32 R rows must divide a 128-row tile");
 static_assert(kSplit >= 1 && kSplit <= 8, "8 is the portable cluster size");
 // Blocks per SM that __launch_bounds__ keeps registers for: 8 blocks of
 // 128 threads leave 64 registers a thread.
-constexpr int kMinBlocks = NBODY_PROBE_MIN_BLOCKS;
+constexpr int kMinBlocks = 8;
 
 // The global index of the thread's r-th row.
 template <int R>

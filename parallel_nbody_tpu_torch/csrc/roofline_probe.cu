@@ -175,35 +175,6 @@ int nbody_roofline_probe(int variant, const float* xi, const float* yi,
   }
 }
 
-// The row loops' layout as built: 0 rows per thread, 1 column split,
-// 2 the blocks per SM __launch_bounds__ keeps registers for.
-int nbody_probe_layout(int what) {
-  return what == 0   ? probe::kRows
-         : what == 1 ? probe::kSplit
-         : what == 2 ? probe::kMinBlocks
-                     : -1;
-}
-
-// The occupancy of the `full` row kernel (the others share its layout):
-// what 0, the blocks an SM can hold; 1, the clusters the card can hold at
-// once for a launch at n.  A negative value is a cudaError_t.
-int nbody_probe_occupancy(int what, int64_t n) {
-  const void* kernel = reinterpret_cast<const void*>(
-      &roofline_probe_kernel<kFull, probe::kRows>);
-  int v = 0;
-  cudaError_t err;
-  if (what == 0) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&v, kernel, kBlock,
-                                                        0);
-  } else {
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = probe::grid(n);
-    cfg.blockDim = dim3(kBlock);
-    err = cudaOccupancyMaxActiveClusters(&v, kernel, &cfg);
-  }
-  return err == cudaSuccess ? v : -static_cast<int>(err);
-}
-
 // The probe library's copy of forces.cu's error-string function.
 const char* nbody_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -8,18 +8,15 @@ blocks the other:
   ``_build/libnbody_kernels_<hash>.so``;
 - ``load("probes")``: the roofline and coincident-bias probes,
   ``csrc/roofline_probe.cu`` (P1) and ``csrc/bias_variants_probe.cu`` (P2),
-  into ``_build/libnbody_probes_<hash>.so``; ``load("probes", defines)``
-  builds them with other macro values (``-DNAME=VALUE``), such as another
-  layout of their row loops (``csrc/probe_layout.cuh``).
+  into ``_build/libnbody_probes_<hash>.so``.
 
 ``nvcc`` compiles each source of a library to an object, all of them at
 once, and links the objects.  The sources have a plain C interface and no
 PyTorch headers, so a build takes seconds.  A library's hash covers its
-sources, the headers, the flags and the defines: a changed source builds a
-new library and an unchanged one is loaded as built.  Nothing here runs at
-import time, so the package imports on machines without ``nvcc`` or a GPU;
-``load()`` raises there, with nvcc's own error output when a compile
-fails.
+sources, the headers and the flags: a changed source builds a new library
+and an unchanged one is loaded as built.  Nothing here runs at import time,
+so the package imports on machines without ``nvcc`` or a GPU; ``load()``
+raises there, with nvcc's own error output when a compile fails.
 """
 
 from __future__ import annotations
@@ -78,12 +75,7 @@ LIBRARIES = {
                  for suffix in DTYPE_SUFFIXES}),
     "probes": (("roofline_probe.cu", "bias_variants_probe.cu"),
                {"nbody_roofline_probe": _PROBE_ARGTYPES,
-                "nbody_bias_variants_probe": _PROBE_ARGTYPES,
-                # 0: rows per thread, 1: column split, 2: blocks per SM
-                # kept registers for, of the row loops.
-                "nbody_probe_layout": [_INT],
-                # 0: blocks per SM, 1: clusters at once (at n).
-                "nbody_probe_occupancy": [_INT, _I64]}),
+                "nbody_bias_variants_probe": _PROBE_ARGTYPES}),
 }
 
 
@@ -124,8 +116,8 @@ def _nvcc() -> str:
     return found
 
 
-def _source_hash(sources, flags) -> str:
-    h = hashlib.sha256(" ".join(flags).encode())
+def _source_hash(sources) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources + HEADERS:
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
@@ -149,16 +141,14 @@ def _run_all(cmds):
 
 
 @functools.cache
-def load(name: str = "kernels", defines=()) -> Library:
+def load(name: str = "kernels") -> Library:
     """Build (unless already built from these sources) and load the library
-    ``name`` of ``LIBRARIES``, with ``defines`` ((macro, value) pairs)
-    passed to nvcc as ``-Dmacro=value``.  Raises RuntimeError if nvcc is
-    missing or fails."""
+    ``name`` of ``LIBRARIES``.  Raises RuntimeError if nvcc is missing or
+    fails."""
     files, signatures = LIBRARIES[name]
     sources = tuple(os.path.join(_CSRC, f) for f in files)
-    flags = NVCC_FLAGS + tuple("-D%s=%s" % d for d in defines)
     target = os.path.join(BUILD_DIR, "libnbody_%s_%s.so"
-                          % (name, _source_hash(sources, flags)))
+                          % (name, _source_hash(sources)))
     if os.path.exists(target):
         return Library(target, "", 0.0, signatures)
     nvcc = _nvcc()
@@ -171,7 +161,7 @@ def load(name: str = "kernels", defines=()) -> Library:
                 for src in sources]
         t0 = time.perf_counter()
         failed, log = _run_all(
-            [[nvcc, *flags, "-c", "-o", obj, src]
+            [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
              for obj, src in zip(objs, sources)])
         if not failed:
             lib = os.path.join(work, "lib.so")

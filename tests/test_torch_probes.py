@@ -172,26 +172,32 @@ def test_kernel_order_folds_parts_in_rank_order():
 
 
 def test_layout_constants_match_the_header():
-    """_probe.ROWS and SPLIT, which the plain version's order assumes, are
-    the defaults of csrc/probe_layout.cuh."""
+    """_probe.ROWS and SPLIT, which the plain version's order and the
+    census's kernel names assume, are kRows and kSplit of
+    csrc/probe_layout.cuh."""
     with open(os.path.join(CSRC, "probe_layout.cuh")) as f:
         text = f.read()
-    for macro, value in (("NBODY_PROBE_ROWS", _probe.ROWS),
-                         ("NBODY_PROBE_SPLIT", _probe.SPLIT)):
-        assert "#define %s %d\n" % (macro, value) in text
+    for name, value in (("kRows", _probe.ROWS), ("kSplit", _probe.SPLIT)):
+        assert "constexpr int %s = %d;\n" % (name, value) in text
 
 
-def test_build_hashes_every_header_and_the_defines():
-    """A change to any header under csrc/, or another layout's defines,
-    builds a new library instead of loading a stale one."""
+def test_build_hashes_every_header_and_the_defines(tmp_path, monkeypatch):
+    """Every header under csrc/ is hashed, so a change to one, such as
+    another layout's definitions in probe_layout.cuh, builds a new library
+    instead of loading a stale one."""
     from parallel_nbody_tpu_torch.ops import _build
     headers = {f for f in os.listdir(CSRC) if f.endswith(".cuh")}
     assert {os.path.basename(h) for h in _build.HEADERS} == headers
     sources = tuple(os.path.join(CSRC, f)
                     for f in _build.LIBRARIES["probes"][0])
-    assert _build._source_hash(sources, _build.NVCC_FLAGS) != \
-        _build._source_hash(sources, _build.NVCC_FLAGS
-                            + ("-DNBODY_PROBE_ROWS=2",))
+    before = _build._source_hash(sources)
+    edited = tmp_path / "probe_layout.cuh"
+    with open(os.path.join(CSRC, "probe_layout.cuh")) as f:
+        edited.write_text(f.read().replace("kSplit = 2;", "kSplit = 4;"))
+    monkeypatch.setattr(_build, "HEADERS", tuple(
+        str(edited) if h.endswith("probe_layout.cuh") else h
+        for h in _build.HEADERS))
+    assert _build._source_hash(sources) != before
 
 
 @pytest.mark.parametrize("variant", [v for v in tbias.VARIANTS if v != "r2"])
@@ -467,6 +473,29 @@ def test_sass_census_probe_loop_faults(kernel, variant, loop, fault):
         assert faults == []
     else:
         assert len(faults) == 1 and fault in faults[0]
+
+
+@pytest.mark.parametrize("probe, variant", CASES)
+def test_probe_kernel_name_is_the_census_name(probe, variant):
+    """probe_kernel_name gives the name kernel_name reads off the mangled
+    symbol of the kernel the variant launches, and the census takes a pass
+    of that kernel as 8 columns of _probe.ROWS rows (16 pairs for the
+    tensor-core kernel)."""
+    from parallel_nbody_tpu_torch.benchmarks import sass_census
+    name = sass_census.probe_kernel_name(probe, variant)
+    if variant in _probe.TF32_VARIANTS:
+        args = "Lb%d" % (variant == "bias1_mxu2")
+        template, pairs = "bias_probe_mma_kernel", 16
+    else:
+        index = (troof if probe == troof.NAME else tbias).VARIANTS.index(
+            variant)
+        args = "Li%dELi%d" % (index, _probe.ROWS)
+        template = ("roofline_probe_kernel" if probe == troof.NAME
+                    else "bias_probe_kernel")
+        pairs = 8 * _probe.ROWS
+    mangled = "_ZN4_GLOBAL__%d%sI%sEEEvPKf" % (len(template), template, args)
+    assert sass_census.kernel_name(mangled) == name
+    assert sass_census.pairs_per_pass(name) == pairs
 
 
 def test_ptxas_registers_reads_the_build_log():

@@ -23,9 +23,21 @@ pairs placed in a tile below, a tile above and both overlapping tiles.
 The SASS census tells K1's and K2's three fp32 pair loops apart (unbiased,
 constant bias, per-pair bias), checks that none holds a per-pair branch or
 the rsqrtf wrapper, checks the probe loops (no FSETP, a pass of R rows,
-every column load kept), and gives each kernel's issue bound.  Every phase
-passes or
-raises: any failure exits non-zero before the result lines.  The last two
+every column load kept), and gives each kernel's issue bound.
+
+The rest of what the CLI does on one device runs at N=65536 in fp32 on the
+1024x768 arena: a sabotage case (K1 against a plain version with gravity's
+sign flipped must FAIL its comparison); the rasterizer on the card against
+the same tensors rendered on the CPU and against a second chunking
+(byte-equal), with its time and peak memory; the CLI with
+``secs_per_update=1`` for 2000 steps (frames drawn as its RTIME calls for,
+K1's launches accounted for, the printed state byte-equal to the same run
+without frames); ``--checkpoint`` at 60 steps and ``--resume`` to 100
+(stdout byte-equal to the uninterrupted run; a resume past the target runs
+no step and records step 60); and at N=4096 ``--check-nans`` (clean, and a
+planted NaN) and ``--trace`` (a trace with device time, a 0.00% collective
+share).  The earlier phases run at the depth they had.  Every phase passes
+or raises: any failure exits non-zero before the result lines.  The last two
 lines of stdout are the kernel table and the result, as JSON.
 
 Tolerances (each comparison uses the plain version's max |F| as the scale):
@@ -62,6 +74,14 @@ Tolerances (each comparison uses the plain version's max |F| as the scale):
   - the tensor-core variants (mxu2_r2, bias1_mxu2) round each term to tf32
     (2^-11 relative): per row |error_i| <= 2^-10 * |G m_i| * sum_j |term_ij|,
     the sum of magnitudes from the plain version.
+  - frames: none; card and CPU frames are byte-equal.  Each pixel's test is
+    ``sqrt(dx*dx + dy*dy) <= radius + 0.5`` in fp32 with one rounding per
+    operation on both devices: subtraction, multiplication, addition and
+    ``torch.sqrt`` are correctly rounded on both, and eager ops are separate
+    kernels, so nothing is contracted into an FMA.
+  - frames, checkpoints and resume leave the printed state byte-equal: K1
+    sums each row in a fixed order with no atomics, and the .npz holds the
+    fp32 state exactly (as float64).
 """
 
 from __future__ import annotations
@@ -89,6 +109,15 @@ BIG_N, BIG_STEPS = 262144, 20  # K2's path: above cuda_step.STREAMED_ABOVE
 BIG_RUNS = (("fp32", []), ("fp32 compensated", ["--accum=compensated"]),
             ("bf16", ["--dtype=bfloat16"]))
 K1, K2 = "block_forces", "block_forces_streamed"
+# The frame path: RTIME of several seconds (a step takes ~3.2 ms), so that
+# the cadence check asks for more than the one frame an unfenced loop draws.
+FRAME_STEPS, FRAME_SECSUP = 2000, 1
+RENDER_STEPS = 3  # K1 steps before the frame that is compared with the CPU's
+# What a frame may allocate beyond the budget of its hit temporaries: the
+# (768, 1024) index map, the selected bodies and the tint's int64 planes.
+RENDER_SLACK_BYTES = 32 * 2**20
+CKPT_STEPS, CKPT_TOTAL, CKPT_PAST = 60, 100, 40
+DIAG_N, DIAG_STEPS = 4096, 20
 PROBE_N, PROBE_STEPS = 65536, 20  # both probe drivers' defaults
 PROBE_TILE = 1024  # P2's default tile_i and tile_j, used for the timings
 TOL_PROBE_MAIN = 4e-5  # fp32 probe variants at PROBE_N (see the docstring)
@@ -417,15 +446,15 @@ def phase_coincident(dev):
     print("any_coincident: True on glibc N=4096, False on random_state")
 
 
-def _cli(argv, platform):
+def _cli(argv, platform, want_rc=0):
     from parallel_nbody_tpu_torch import cli
     os.environ["NBODY_PLATFORM"] = platform
     out, err = io.StringIO(), io.StringIO()
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         rc = cli.main(["nbody"] + argv)
-    if rc != 0:
-        raise AssertionError("cli %s on %s exited %d:\n%s"
-                             % (argv, platform, rc, err.getvalue()))
+    if rc != want_rc:
+        raise AssertionError("cli %s on %s exited %d, expected %d:\n%s"
+                             % (argv, platform, rc, want_rc, err.getvalue()))
     return out.getvalue(), err.getvalue()
 
 
@@ -535,6 +564,315 @@ def phase_state_streamed(dev):
         if not diff <= tol:
             raise AssertionError("N=%d: field %s differs by %.6e"
                                  % (BIG_N, name, diff))
+
+
+def phase_sabotage(dev):
+    """The comparison must be able to fail: K1 against a plain version with
+    gravity's sign flipped trips ``_compare``, or this phase raises."""
+    from parallel_nbody_tpu_torch.ops import cuda_step
+    from parallel_nbody_tpu_torch.state import init_state
+    b = _bodies(init_state(4096, _cfg("float32"), device=dev))
+    plain = cuda_step.block_forces_reference
+
+    def flipped(cfg, *args, **kw):
+        return plain(cfg.replace(gravity=-cfg.gravity), *args, **kw)
+
+    with mock.patch.object(cuda_step, "block_forces_reference", flipped):
+        try:
+            _compare("SABOTAGE gravity sign flipped", b, b, torch.float32,
+                     False)
+        except AssertionError as e:
+            print("sabotage: tripped as it must (%s)" % e)
+            return
+    raise AssertionError("sabotage: K1 agreed with a plain version whose "
+                         "gravity has the wrong sign; the comparison "
+                         "cannot fail")
+
+
+def _pixel_report(bodies, j, i):
+    """Why pixel (row j, column i) differs between the devices: every body
+    whose hit test differs there, with both distances and the threshold."""
+    lines = []
+    per_device = []
+    for tensors in (bodies, tuple(t.cpu() for t in bodies)):
+        x, y, r = tensors
+        dx, dy = x - float(i), y - float(j)
+        d = (dx * dx + dy * dy).sqrt()
+        per_device.append((d.cpu(), (d <= r + 0.5).cpu(), (r + 0.5).cpu()))
+    (d_card, hit_card, thr), (d_cpu, hit_cpu, _) = per_device
+    for b in torch.nonzero(hit_card != hit_cpu)[:, 0].tolist():
+        lines.append("body %d at pixel (row %d, column %d): distance on the "
+                     "card %r, on the CPU %r, threshold %r"
+                     % (b, j, i, float(d_card[b]), float(d_cpu[b]),
+                        float(thr[b])))
+    return "; ".join(lines) or "no body's hit test differs at (%d, %d)" % (j, i)
+
+
+def phase_render(dev):
+    """The rasterizer at full width: the glibc state at N=65536 after
+    RENDER_STEPS K1 steps (fp32) on the 1024x768 arena, rendered on the card
+    and, from the same tensors copied to the host, on the CPU: frames
+    byte-equal (see the docstring's tolerances; nothing is loosened).  A
+    second chunking of rows and bodies on the card gives the same bytes.
+    The frame's peak memory above what was allocated before it stays within
+    the budget of the hit temporaries plus RENDER_SLACK_BYTES.  Returns (ms
+    per frame by CUDA events, peak bytes)."""
+    from parallel_nbody_tpu_torch.models.engine import run
+    from parallel_nbody_tpu_torch.ops import render
+    from parallel_nbody_tpu_torch.state import init_state
+    cfg = _cfg("float32")
+    st = run(cfg, init_state(MAIN_N, cfg, device=dev), RENDER_STEPS)
+    bodies = (st.x, st.y, st.radius)
+    ms = _time_ms(lambda: render.render_frame(cfg, *bodies, MAIN_N), 3,
+                  warmup=1)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    card = render.render_frame(cfg, *bodies, MAIN_N)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    lit = int(card.any(dim=-1).sum())
+    print("render N=%d %dx%d on the card: %.6f ms per frame, peak %d bytes "
+          "above the %d allocated before (budget %d + %d), %d of %d pixels lit"
+          % (MAIN_N, cfg.xdim, cfg.ydim, ms, peak, before,
+             render.HIT_BUDGET_BYTES, RENDER_SLACK_BYTES, lit,
+             cfg.xdim * cfg.ydim))
+    if lit == 0:
+        raise AssertionError("render: the frame is all black")
+    if peak > render.HIT_BUDGET_BYTES + RENDER_SLACK_BYTES:
+        raise AssertionError("render: peak memory %d bytes is over the "
+                             "budget" % peak)
+    other = render.render_frame(cfg, *bodies, MAIN_N, 24, 1000)
+    if not torch.equal(other, card):
+        raise AssertionError("render: row_block=24, body_chunk=1000 gives "
+                             "another frame than the default chunking")
+    t0 = time.perf_counter()
+    host = render.render_frame(cfg, *(t.cpu() for t in bodies), MAIN_N)
+    cpu_s = time.perf_counter() - t0
+    differ = torch.nonzero((card.cpu() != host).any(dim=-1))
+    print("render N=%d on the CPU from the same tensors: %.3f s; %d pixels "
+          "differ from the card's frame; second chunking byte-equal"
+          % (MAIN_N, cpu_s, differ.shape[0]))
+    if differ.shape[0]:
+        j, i = differ[0].tolist()
+        raise AssertionError("render: card and CPU frames differ in %d "
+                             "pixels; %s" % (differ.shape[0],
+                                             _pixel_report(bodies, j, i)))
+    return ms, peak
+
+
+def _rtime(err):
+    return float(re.search(r"N-body took: (\d+\.\d+) seconds", err).group(1))
+
+
+def _k1_run(argv, env=None):
+    """One CLI run on the card with both kernels' counts set to 0 just
+    before it; returns (stdout, stderr, K1 launches).  K2 must not run."""
+    from parallel_nbody_tpu_torch.ops import cuda_step
+    cuda_step.block_forces.launches = 0
+    cuda_step.block_forces_streamed.launches = 0
+    with mock.patch.dict(os.environ, env or {}):
+        out, err = _cli(argv, "cuda")
+    if cuda_step.block_forces_streamed.launches:
+        raise AssertionError("%s launched K2" % " ".join(argv))
+    return out, err, cuda_step.block_forces.launches
+
+
+def phase_frame_path(tmp, render_ms):
+    """The frame path at full width: the CLI at N=65536 with
+    ``secs_per_update=1`` for FRAME_STEPS steps through K1.  It must draw at
+    least int(RTIME / 2) - 1 frames and at least one (without the fence
+    before the elapsed check the loop queues every chunk in milliseconds
+    and draws one), leave pixels that are not all black, launch K1 once per
+    step plus the warm-up step and the cadence probe's step (both on
+    discarded copies of the state, outside RTIME), and print the state of
+    the same argv with ``secs_per_update=0`` byte for byte (that run
+    launches K1 once per step plus the warm-up).  Returns (K1 launches with
+    frames, frames, RTIME with frames, RTIME without)."""
+    from parallel_nbody_tpu_torch.utils import ppm
+    arena = os.path.join(tmp, "frames.ppm")
+    handle = ppm.create(arena, 1024, 768)
+    log = os.path.join(tmp, "frames.log")
+    argv = [str(MAIN_N), str(FRAME_SECSUP), arena, str(FRAME_STEPS),
+            "--no-clamp", "--pallas"]
+    out, err, k1 = _k1_run(argv, {"NBODY_FRAME_LOG": log})
+    rtime = _rtime(err)
+    with open(log) as f:
+        lines = f.read().splitlines()
+    for line in lines:
+        if not re.fullmatch(r"frame \d+\.\d{3} nonzero=\d+ tints=\d+ "
+                            r"md5=[0-9a-f]{32}", line):
+            raise AssertionError("frame log: malformed line %r" % line)
+    frames = len(lines)
+    need = max(1, int(rtime / (2 * FRAME_SECSUP)) - 1)
+    lit = int(ppm.read_pixels(handle).any(axis=-1).sum())
+    argv0 = list(argv)
+    argv0[1] = "0"
+    out0, err0, k1_plain = _k1_run(argv0)
+    rtime0 = _rtime(err0)
+    print("frame path: %s" % " ".join(argv))
+    print("frame path: %d frames in RTIME %.3f s (needs %d); RTIME without "
+          "frames %.3f s; frame work (RTIME difference) %.1f%% of RTIME, "
+          "%d frames x %.3f ms of render_frame %.1f%%; K1 launches %d with "
+          "frames, %d without; last frame: %s; %d pixels lit in the PPM"
+          % (frames, rtime, need, rtime0, 100 * (rtime - rtime0) / rtime,
+             frames, render_ms, 100 * frames * render_ms / 1e3 / rtime, k1,
+             k1_plain, lines[-1] if lines else "none", lit))
+    if frames < need:
+        raise AssertionError("frame path: %d frames in %.3f s, needs %d"
+                             % (frames, rtime, need))
+    if lit == 0:
+        raise AssertionError("frame path: the PPM's pixels are all black")
+    if k1 != FRAME_STEPS + 2 or k1_plain != FRAME_STEPS + 1:
+        raise AssertionError("frame path: K1 launched %d times with frames "
+                             "(expected %d steps + warm-up + probe) and %d "
+                             "without (expected steps + warm-up)"
+                             % (k1, FRAME_STEPS, k1_plain))
+    _state_table(out, MAIN_N)
+    if out != out0:
+        raise AssertionError("frame path: frames moved the state")
+    _frame_host_costs(handle, log)
+    return k1, frames, rtime, rtime0
+
+
+def _frame_host_costs(handle, log):
+    """What one frame costs beside render_frame, by the host clock: the
+    copy of the (768, 1024, 3) frame to the host, ``write_pixels`` into the
+    PPM and the frame log's line."""
+    from parallel_nbody_tpu_torch import cli
+    from parallel_nbody_tpu_torch.utils import ppm
+    frame = ppm.read_pixels(handle)
+    on_card = torch.from_numpy(frame.copy()).cuda()
+    torch.cuda.synchronize()
+    costs = {}
+    for name, fn in (("copy to the host", lambda: on_card.cpu().numpy()),
+                     ("write_pixels", lambda: ppm.write_pixels(handle, frame)),
+                     ("frame log line", lambda: cli._log_frame(log, frame))):
+        t0 = time.perf_counter()
+        fn()
+        costs[name] = (time.perf_counter() - t0) * 1e3
+    print("frame path: per frame beside render_frame: %s"
+          % ", ".join("%s %.3f ms" % kv for kv in costs.items()))
+
+
+def phase_checkpoint(tmp, arena, dev):
+    """Checkpoint and resume on the card at N=65536 through K1: CKPT_STEPS
+    steps with ``--checkpoint``, then ``--resume`` to CKPT_TOTAL: stdout
+    byte-equal to the uninterrupted run.  A resume past the target
+    (steps=CKPT_PAST) runs no step, launches no kernel, reports 0.00 GFLOPS
+    and its ``--checkpoint`` records step CKPT_STEPS and the same state.
+    Also times ``save_state`` and ``load_state`` of that state (host clock,
+    device synchronized).  Returns (K1 launches of the resumed run, save ms,
+    load ms)."""
+    from parallel_nbody_tpu_torch.utils import checkpoint as ckpt
+    base = [str(MAIN_N), "0", arena]
+    flags = ["--no-clamp", "--pallas"]
+    a, b = os.path.join(tmp, "a.npz"), os.path.join(tmp, "b.npz")
+    full, _, _ = _k1_run(base + [str(CKPT_TOTAL)] + flags)
+    first, _, _ = _k1_run(base + [str(CKPT_STEPS)] + flags
+                          + ["--checkpoint=" + a])
+    resumed, _, k1 = _k1_run(base + [str(CKPT_TOTAL)] + flags
+                             + ["--resume=" + a])
+    _state_table(resumed, MAIN_N)
+    if resumed != full or first == full:
+        raise AssertionError("checkpoint: the resumed run's stdout differs "
+                             "from the uninterrupted run's")
+    if k1 != CKPT_TOTAL - CKPT_STEPS + 1:
+        raise AssertionError("checkpoint: the resumed run launched K1 %d "
+                             "times, expected %d steps + warm-up"
+                             % (k1, CKPT_TOTAL - CKPT_STEPS))
+    past, _, k1_past = _k1_run(base + [str(CKPT_PAST)] + flags + [
+        "--resume=" + a, "--checkpoint=" + b, "--run-xps"])
+    if k1_past or not re.fullmatch(r"%d,\d+\.\d{3}, 0\.00\n" % MAIN_N, past):
+        raise AssertionError("checkpoint: resume past the target launched "
+                             "K1 %d times and printed %r" % (k1_past, past))
+    with np.load(a) as za, np.load(b) as zb:
+        if int(za["step"]) != CKPT_STEPS or int(zb["step"]) != CKPT_STEPS:
+            raise AssertionError("checkpoint: steps %d and %d recorded, "
+                                 "expected %d" % (za["step"], zb["step"],
+                                                  CKPT_STEPS))
+        for name in za.files:
+            if za[name].tobytes() != zb[name].tobytes():
+                raise AssertionError("checkpoint: %s changed in a run of "
+                                     "no steps" % name)
+    t0 = time.perf_counter()
+    state, step = ckpt.load_state(a, dev, torch.float32)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ckpt.save_state(os.path.join(tmp, "c.npz"), state, step)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    print("checkpoint N=%d: %d + %d steps byte-equal to %d uninterrupted; "
+          "resume past the target ran no step and recorded step %d; "
+          "save_state %.3f ms, load_state %.3f ms (%d bytes)"
+          % (MAIN_N, CKPT_STEPS, CKPT_TOTAL - CKPT_STEPS, CKPT_TOTAL,
+             CKPT_STEPS, save_ms, load_ms, os.path.getsize(a)))
+    return k1, save_ms, load_ms
+
+
+def phase_diagnostics(tmp, arena):
+    """``--check-nans`` and ``--trace`` at N=DIAG_N on the card through K1:
+    the validation line of a clean run, whose stdout is the unchecked run's;
+    a checkpoint with a NaN planted in ``xv`` exits 1 naming the field when
+    no step is left to run, and raises FloatingPointError naming the field
+    and the step when one is; the trace directory holds one trace with
+    device kernels of non-zero time, K1's among them, and the ``Trace:``
+    line reports a 0.00% collective share."""
+    import glob
+    import gzip
+    base = [str(DIAG_N), "0", arena]
+    flags = ["--pallas"]
+    plain, _ = _cli(base + [str(DIAG_STEPS)] + flags, "cuda")
+    checked, err = _cli(base + [str(DIAG_STEPS)] + flags + ["--check-nans"],
+                        "cuda")
+    line = [l for l in err.splitlines() if l.startswith("State validation")]
+    if checked != plain or len(line) != 1 or not re.fullmatch(
+            r"State validation ok: max\|v\|=\S+ max\|f\|=\S+ "
+            r"in_bounds=True", line[0]):
+        raise AssertionError("--check-nans: %r" % (line,))
+    print("--check-nans N=%d: %s" % (DIAG_N, line[0]))
+
+    ck = os.path.join(tmp, "clean.npz")
+    bad = os.path.join(tmp, "poisoned.npz")
+    _cli(base + ["5"] + flags + ["--checkpoint=" + ck], "cuda")
+    with np.load(ck) as z:
+        fields = {k: z[k].copy() for k in z.files}
+    fields["xv"][7] = np.nan
+    np.savez(bad, **fields)
+    out, err = _cli(base + ["5"] + flags + ["--resume=" + bad,
+                                            "--check-nans"], "cuda", want_rc=1)
+    if out or "State validation FAILED: NaNs in xv\n" not in err:
+        raise AssertionError("--check-nans: a planted NaN gave %r" % err)
+    try:
+        _cli(base + ["9"] + flags + ["--resume=" + bad, "--check-nans"],
+             "cuda")
+    except FloatingPointError as e:
+        if not re.search(r"\bxv\b.* after step 6$", str(e)):
+            raise AssertionError("--check-nans: raised %r" % str(e))
+        print("--check-nans: planted NaN exits 1 naming xv; mid-run: %s" % e)
+    else:
+        raise AssertionError("--check-nans: a planted NaN ran to the end")
+
+    trace_dir = os.path.join(tmp, "trace")
+    traced, err = _cli(base + [str(DIAG_STEPS)] + flags
+                       + ["--trace=" + trace_dir], "cuda")
+    line = [l for l in err.splitlines() if l.startswith("Trace:")]
+    files = glob.glob(os.path.join(trace_dir, "*.trace.json.gz"))
+    if traced != plain or len(files) != 1 or len(line) != 1 or not \
+            line[0].endswith("(0.00%% share) -> %s" % trace_dir):
+        raise AssertionError("--trace: %d traces, stderr %r" % (len(files),
+                                                                err))
+    with gzip.open(files[0], "rt") as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    device_us = sum(e["dur"] for e in kernels)
+    k1_us = sum(e["dur"] for e in kernels
+                if "block_forces_kernel" in e["name"])
+    print("--trace N=%d x %d steps: %s; %d device kernel events, %.3f ms, "
+          "K1 %.3f ms of it" % (DIAG_N, DIAG_STEPS, line[0], len(kernels),
+                                device_us / 1e3, k1_us / 1e3))
+    if not device_us > 0 or not k1_us > 0:
+        raise AssertionError("--trace: the trace holds no device time")
 
 
 def _time_ms(fn, reps, warmup=2):
@@ -918,6 +1256,7 @@ def main() -> int:
     name, issue_hz = phase_device()
     phase_build()
     max_err_k1 = phase_compare(dev)
+    phase_sabotage(dev)
     max_err_k2, plain_ms_k2 = phase_compare_streamed(dev)
     phase_compensated(dev)
     phase_bf16(dev)
@@ -927,6 +1266,10 @@ def main() -> int:
         ppm.create(arena, 1024, 768)
         launches_k1, _ = phase_main_path(arena)
         launches_k2 = phase_main_path_streamed(arena)
+        render_ms, _ = phase_render(dev)
+        launches_frames, _, _, _ = phase_frame_path(tmp, render_ms)
+        launches_resumed, _, _ = phase_checkpoint(tmp, arena, dev)
+        phase_diagnostics(tmp, arena)
     phase_state_streamed(dev)
     times = phase_timing(dev)
     times_big = phase_timing_streamed(dev)
@@ -941,6 +1284,8 @@ def main() -> int:
         "source": source % "forces.cu",
         "replaces": replaces % 249,
         "launches": launches_k1,
+        "launches_frame_path": launches_frames,
+        "launches_resumed_run": launches_resumed,
         "max_abs_err": max_err_k1,
         "ms": times["kernel"],
         "ms_biased": times["kernel_biased"],

@@ -7,16 +7,19 @@ sequence of eager tensor ops on the state's device; with ``kernel="cuda"``
 the force pass is one call of a hand-written kernel (K1, or K2 above 131072
 bodies; ops/cuda_step.cuda_forces).  Nothing in the
 loop reads a value back to the host, so on a GPU the launches queue without
-waiting for the device.
+waiting for the device (the NaN-check debug mode of ``run`` aside).
 """
 
 from __future__ import annotations
+
+import torch
 
 from ..config import SimConfig
 from ..ops.cuda_step import cuda_forces, forces_coincident_dispatch
 from ..ops.forces import compute_forces_dense
 from ..ops.integrate import compute_positions, compute_velocities
 from ..state import State
+from ..utils.debug import check_finite
 
 
 def step(cfg: SimConfig, state: State) -> State:
@@ -39,8 +42,52 @@ def step(cfg: SimConfig, state: State) -> State:
     return State(x, y, xv, yv, xf, yf, state.mass, state.radius)
 
 
-def run(cfg: SimConfig, state: State, steps: int) -> State:
-    """Run ``steps`` simulation steps."""
-    for _ in range(steps):
+def run(cfg: SimConfig, state: State, steps: int,
+        nan_check_from: int | None = None) -> State:
+    """Run ``steps`` simulation steps.
+
+    ``nan_check_from`` turns on the NaN-check debug mode: it is the number
+    of steps the state has already taken, and every step's output is then
+    read back and checked (``utils.debug.check_finite``), so the first
+    non-finite value raises FloatingPointError naming its field and step.
+    """
+    for i in range(steps):
         state = step(cfg, state)
+        if nan_check_from is not None:
+            check_finite(state, nan_check_from + i + 1)
     return state
+
+
+def run_trajectory(cfg: SimConfig, state: State, steps: int,
+                   record_every: int = 1):
+    """Run ``steps`` steps, recording (x, y) every ``record_every`` steps.
+
+    Returns (final_state, xs, ys) where xs/ys have shape
+    (steps // record_every, N); as in the JAX package, the steps past the
+    last record are not run.  Used for animation / analysis.
+    """
+    records = steps // record_every
+    xs = state.x.new_empty((records, state.n))
+    ys = state.y.new_empty((records, state.n))
+    for i in range(records):
+        state = run(cfg, state, record_every)
+        xs[i], ys[i] = state.x, state.y
+    return state, xs, ys
+
+
+def total_energy(cfg: SimConfig, state: State) -> torch.Tensor:
+    """Diagnostic: kinetic + (softened) potential energy, a 0-d tensor.
+
+    The reference has no energy accounting; this supports the long-run drift
+    regression.  Uses the same softened denominator as the force law
+    (potential consistent with F = -G m_i m_j / max(d^2, mind^2) along the
+    pair axis).  Materializes the (N, N) pair matrix.
+    """
+    ke = 0.5 * torch.sum(state.mass * (state.xv**2 + state.yv**2))
+    dx = state.x[None, :] - state.x[:, None]
+    dy = state.y[None, :] - state.y[:, None]
+    dsqr = dx * dx + dy * dy
+    mind = state.radius[:, None] + state.radius[None, :]
+    d = torch.sqrt(torch.maximum(dsqr, mind * mind).clamp(min=1e-30))
+    pair_pe = -cfg.gravity * state.mass[:, None] * state.mass[None, :] / d
+    return ke + torch.sum(torch.triu(pair_pe, diagonal=1))

@@ -1,10 +1,11 @@
 """ctypes bridge to the native host library (native/libnbody_host.so).
 
-Two entry points of that library are used: the glibc-rand init loop (large
-N: milliseconds against seconds in Python) and the snprintf final-state
-formatter (the reference's own printf semantics).  Both are bit-identical to
-the Python implementations, which remain the fallback when the library is
-missing or does not load (``make -C native`` builds it).
+Three entry points of that library are used: the glibc-rand init loop
+(large N: milliseconds against seconds in Python), the snprintf final-state
+formatter (the reference's own printf semantics) and the mmap PPM frame
+blit.  All are bit-identical to the Python implementations, which remain the
+fallback when the library is missing or does not load (``make -C native``
+builds it).
 """
 
 from __future__ import annotations
@@ -33,6 +34,11 @@ def load():
                                ctypes.c_int32, ctypes.c_int32,
                                dptr, dptr, dptr, dptr, dptr, dptr]
     lib.nbody_init.restype = None
+    lib.nbody_ppm_blit.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64,
+        np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS"),
+        ctypes.c_int64]
+    lib.nbody_ppm_blit.restype = ctypes.c_int
     lib.nbody_format_state.argtypes = [
         ctypes.c_int64, dptr, dptr, dptr, dptr, dptr, dptr,
         ctypes.c_char_p, ctypes.c_int64]
@@ -70,3 +76,15 @@ def format_state_native(x, y, xf, yf, xv, yv) -> str | None:
     if nbytes < 0:
         return None
     return buf.raw[:nbytes].decode("ascii")
+
+
+def ppm_blit(path: str, data_offset: int, pixels: np.ndarray) -> bool:
+    """Write ``pixels`` over the file's pixel data through the library's
+    mmap blit; False when the library is unavailable or the blit fails (the
+    caller then seeks and writes)."""
+    lib = load()
+    if lib is None:
+        return False
+    pixels = np.ascontiguousarray(pixels, np.uint8)
+    rc = lib.nbody_ppm_blit(path.encode(), data_offset, pixels, pixels.size)
+    return rc == 0

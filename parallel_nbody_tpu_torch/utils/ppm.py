@@ -1,14 +1,17 @@
-"""P6 PPM header parsing and creation.
+"""P6 PPM image I/O.
 
 The reference mmaps an *existing* binary PPM and parses its header by hand
 (map_P6 / Eat_Space / Get_Number, nbody-seq.c:171-304) — the parsed
 ``xdim``/``ydim`` define the simulation arena.  Same contract here: parse the
-header (whitespace + ``#`` comments) and expose the pixel-data offset.
+header (whitespace + ``#`` comments), expose the pixel-data offset, and write
+frames in place.  A C implementation of the in-place frame blit lives in
+native/ (used when the library loads).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 
@@ -92,3 +95,29 @@ def create(path: str, xdim: int, ydim: int,
         f.write(header)
         f.write(np.ascontiguousarray(pixels, np.uint8).tobytes())
     return PPMFile(path, xdim, ydim, 255, len(header))
+
+
+def write_pixels(ppm: PPMFile, pixels: np.ndarray) -> None:
+    """In-place frame update (the display+msync analog, nbody-seq.c:467-471).
+
+    Uses the native mmap blit (native/nbody_host.cpp) when the library
+    loads; otherwise plain seek+write."""
+    pixels = np.ascontiguousarray(pixels, np.uint8)
+    if pixels.shape != (ppm.ydim, ppm.xdim, 3):
+        raise ValueError("frame of shape %s does not fit the %dx%d arena"
+                         % (pixels.shape, ppm.xdim, ppm.ydim))
+    from . import native_bridge
+    if native_bridge.ppm_blit(ppm.path, ppm.data_offset, pixels):
+        return
+    with open(ppm.path, "r+b") as f:
+        f.seek(ppm.data_offset)
+        f.write(pixels.tobytes())
+        f.flush()
+        os.fsync(f.fileno())
+
+
+def read_pixels(ppm: PPMFile) -> np.ndarray:
+    with open(ppm.path, "rb") as f:
+        f.seek(ppm.data_offset)
+        raw = f.read(ppm.npixels * 3)
+    return np.frombuffer(raw, np.uint8).reshape(ppm.ydim, ppm.xdim, 3)

@@ -1,7 +1,8 @@
 """The port's slice whole: engine.run and the CLI against the golden
 fixtures (byte for byte, fp64 trig on the CPU), the kernel path against the
 JAX package's Pallas engine, and the CLI's contract for flags and
-devices.
+devices.  The flags that run on one device are driven in
+test_torch_driver.py and test_torch_diag.py.
 """
 
 import os
@@ -151,19 +152,19 @@ def test_clamp_and_atoi(arena, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [
-    "--devices=2", "--mesh2d=1x2", "--comm=ring", "--checkpoint=c.npz",
-    "--resume=c.npz", "--trace=t", "--check-nans", "secsup"])
-def test_unported_flags_exit_1(flag, arena, capsys, monkeypatch):
-    argv = ["16", "0", arena, "3"]
-    if flag == "secsup":
-        argv[1] = "1"
-    else:
-        argv.append(flag)
+    "--devices=2", "--mesh2d=1x2", "--mesh2d=2x2", "--checkpoint=DIR",
+    "--checkpoint=DIR/ck", "--resume=DIR"])
+def test_unported_flags_exit_1(flag, arena, tmp_path, capsys, monkeypatch):
+    """What is left of the multi-device programs: more than one device, and
+    the sharded checkpoint (a directory; for --checkpoint any path that
+    does not end in .npz).  Refused before any step runs."""
+    argv = ["16", "0", arena, "3", flag.replace("DIR", str(tmp_path))]
     rc, out, err = _main(argv, capsys, monkeypatch)
     assert rc == 1 and out == ""
     assert "not yet ported" in err
-    name = "secs_per_update" if flag == "secsup" else flag.split("=")[0]
-    assert name in err
+    assert flag.split("=")[0] in err
+    assert "N-body took" not in err
+    assert os.listdir(tmp_path) == []
 
 
 def _table(out, n):

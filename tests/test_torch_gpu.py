@@ -463,3 +463,171 @@ def test_probe_main_on_card(probe, runs, dev, capsys):
         assert words[0] == variant and words[2] == "ms/step"
         assert float(words[1]) > 0 and line.endswith("of %s)" % base)
     assert module.probe_forces.launches == len(module.VARIANTS) * runs * 3
+
+
+# ---------------------------------------------------------------------------
+# the CLI on the card: frames, checkpoints, --check-nans, --trace
+# ---------------------------------------------------------------------------
+
+def _cli_on_card(argv, capsys, monkeypatch, env=None):
+    monkeypatch.setenv("NBODY_PLATFORM", "cuda")
+    for k, v in (env or {}).items():
+        monkeypatch.setenv(k, v)
+    capsys.readouterr()
+    rc = cli.main(["nbody"] + argv)
+    out = capsys.readouterr()
+    return rc, out.out, out.err
+
+
+@pytest.fixture
+def arena(tmp_path):
+    p = str(tmp_path / "arena.ppm")
+    ppm.create(p, 256, 192)
+    return p
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("n, steps", [(300, 0), (300, 5), (4096, 2)])
+def test_render_frame_on_card_equals_cpu(n, steps, dtype, dev):
+    """Frames byte-equal between the devices from the same tensors, and
+    under another chunking (every op of the hit test is correctly rounded
+    on both, and eager ops are not contracted)."""
+    from parallel_nbody_tpu_torch.ops.render import render_frame
+    cfg = SimConfig(xdim=256, ydim=192, force_mode="fast", dtype=dtype,
+                    kernel="cuda")
+    st = run(cfg, init_state(n, cfg, device=dev), steps)
+    b = (st.x, st.y, st.radius)
+    card = render_frame(cfg, *b, n)
+    assert card.device == dev and card.dtype == torch.uint8
+    host = render_frame(cfg, *(t.cpu() for t in b), n)
+    assert torch.equal(card.cpu(), host) and bool(host.any())
+    assert torch.equal(render_frame(cfg, *b, n, 7, 33), card)
+    assert torch.equal(render_frame(cfg, *b, n - 9, 50), render_frame(
+        cfg, *(t.cpu() for t in b), n - 9).to(dev))
+
+
+def test_render_frame_peak_memory_is_bounded(dev):
+    """The default body chunk keeps a frame's allocations within the budget
+    of the hit temporaries (plus the index map and the tint's planes),
+    whatever N is."""
+    from parallel_nbody_tpu_torch.ops import render
+    cfg = SimConfig(force_mode="fast", dtype="float32", kernel="cuda")
+    st = init_state(16384, cfg, device=dev)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    render.render_frame(cfg, st.x, st.y, st.radius, 16384)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    assert peak <= render.HIT_BUDGET_BYTES + 32 * 2**20
+
+
+def test_cli_frames_on_card_do_not_move_the_state(dev, arena, tmp_path,
+                                                  capsys, monkeypatch):
+    log = str(tmp_path / "frames.log")
+    argv = ["2048", "1", arena, "200", "--pallas"]
+    cuda_step.block_forces.launches = 0
+    rc, out, err = _cli_on_card(argv, capsys, monkeypatch,
+                                {"NBODY_FRAME_LOG": log})
+    assert rc == 0, err
+    # Every step, the warm-up step and the cadence probe's step.
+    assert cuda_step.block_forces.launches == 202
+    with open(log) as f:
+        assert len(f.read().splitlines()) >= 1
+    assert ppm.read_pixels(ppm.read_header(arena)).any()
+    monkeypatch.delenv("NBODY_FRAME_LOG")
+    argv[1] = "0"
+    rc, plain, _ = _cli_on_card(argv, capsys, monkeypatch)
+    assert rc == 0 and out == plain
+
+
+@pytest.mark.parametrize("flags", [["--pallas"], ["--fast"],
+                                   ["--pallas", "--dtype=bfloat16"]])
+def test_cli_checkpoint_resume_on_card(flags, dev, arena, tmp_path, capsys,
+                                       monkeypatch):
+    """Checkpoint at 12 steps, resume to 30: stdout byte-equal to the
+    uninterrupted run; a resume past the target runs nothing and records
+    the true step; the file loads onto the card in the run's dtype."""
+    from parallel_nbody_tpu_torch.utils import checkpoint as ckpt
+    a, b = str(tmp_path / "a.npz"), str(tmp_path / "b.npz")
+    base = ["1024", "0", arena]
+    _, full, _ = _cli_on_card(base + ["30"] + flags, capsys, monkeypatch)
+    rc, first, err = _cli_on_card(base + ["12", "--checkpoint=" + a] + flags,
+                                  capsys, monkeypatch)
+    assert rc == 0, err
+    rc, resumed, err = _cli_on_card(base + ["30", "--resume=" + a] + flags,
+                                    capsys, monkeypatch)
+    assert rc == 0, err
+    assert resumed == full and first != full
+    cuda_step.block_forces.launches = 0
+    rc, _, _ = _cli_on_card(base + ["5", "--resume=" + a, "--checkpoint=" + b]
+                            + flags, capsys, monkeypatch)
+    assert rc == 0 and cuda_step.block_forces.launches == 0
+    st, step = ckpt.load_state(b, dev, torch.float32)
+    assert step == 12 and st.x.device == dev and st.x.dtype == torch.float32
+    with np.load(a) as za, np.load(b) as zb:
+        for k in za.files:
+            assert za[k].tobytes() == zb[k].tobytes(), k
+
+
+def test_cli_check_nans_on_card(dev, arena, tmp_path, capsys, monkeypatch):
+    argv = ["1024", "0", arena, "10", "--pallas"]
+    _, plain, _ = _cli_on_card(argv, capsys, monkeypatch)
+    rc, out, err = _cli_on_card(argv + ["--check-nans"], capsys, monkeypatch)
+    assert rc == 0 and out == plain
+    assert "State validation ok: max|v|=" in err and "in_bounds=True" in err
+    ck, bad = str(tmp_path / "c.npz"), str(tmp_path / "bad.npz")
+    _cli_on_card(argv + ["--checkpoint=" + ck], capsys, monkeypatch)
+    with np.load(ck) as z:
+        fields = {k: z[k].copy() for k in z.files}
+    fields["yv"][3] = np.nan
+    np.savez(bad, **fields)
+    rc, out, err = _cli_on_card(argv + ["--resume=" + bad, "--check-nans"],
+                                capsys, monkeypatch)
+    assert rc == 1 and out == ""
+    assert "State validation FAILED: NaNs in yv\n" in err
+    argv[3] = "14"
+    with pytest.raises(FloatingPointError, match=r"yv after step 11$"):
+        _cli_on_card(argv + ["--resume=" + bad, "--check-nans"], capsys,
+                     monkeypatch)
+
+
+def test_cli_trace_on_card_holds_device_kernels(dev, arena, tmp_path, capsys,
+                                                monkeypatch):
+    import glob
+    import gzip
+    import json
+    d = str(tmp_path / "trace")
+    argv = ["1024", "0", arena, "10", "--pallas"]
+    _, plain, _ = _cli_on_card(argv, capsys, monkeypatch)
+    rc, out, err = _cli_on_card(argv + ["--trace=" + d], capsys, monkeypatch)
+    assert rc == 0 and out == plain
+    assert "(0.00%% share) -> %s" % d in err
+    (path,) = glob.glob(d + "/*.trace.json.gz")
+    with gzip.open(path, "rt") as f:
+        events = json.load(f)["traceEvents"]
+    k1 = [e for e in events if e.get("cat") == "kernel"
+          and "block_forces_kernel" in e["name"]]
+    assert len(k1) == 10 and all(e["dur"] > 0 for e in k1)
+
+
+def test_diagnostics_on_card_match_cpu(dev):
+    """validate_state, total_energy and run_trajectory on the card against
+    the CPU in fp64 (dense fast forces: the same terms, summed in another
+    order)."""
+    from parallel_nbody_tpu_torch.models import engine
+    from parallel_nbody_tpu_torch.utils.debug import validate_state
+    cfg = SimConfig(force_mode="fast", dtype="float64")
+    host, card = init_state(200, cfg), init_state(200, cfg, device=dev)
+    fh, xh, yh = engine.run_trajectory(cfg, host, 12, 5)
+    fc, xc, yc = engine.run_trajectory(cfg, card, 12, 5)
+    assert xc.shape == (2, 200) and xc.device == dev
+    np.testing.assert_allclose(xc.cpu().numpy(), xh.numpy(), rtol=1e-12)
+    np.testing.assert_allclose(yc.cpu().numpy(), yh.numpy(), rtol=1e-12)
+    np.testing.assert_allclose(float(engine.total_energy(cfg, fc)),
+                               float(engine.total_energy(cfg, fh)),
+                               rtol=1e-12)
+    dh, dc = validate_state(fh, 1024, 768), validate_state(fc, 1024, 768)
+    assert dc.ok() and dc.pos_in_bounds and dc.nan_fields == dh.nan_fields
+    assert dc.max_speed == pytest.approx(dh.max_speed, rel=1e-12)
+    assert dc.max_force == pytest.approx(dh.max_force, rel=1e-9)

@@ -36,9 +36,35 @@ without frames); ``--checkpoint`` at 60 steps and ``--resume`` to 100
 (stdout byte-equal to the uninterrupted run; a resume past the target runs
 no step and records step 60); and at N=4096 ``--check-nans`` (clean, and a
 planted NaN) and ``--trace`` (a trace with device time, a 0.00% collective
-share).  The earlier phases run at the depth they had.  Every phase passes
-or raises: any failure exits non-zero before the result lines.  The last two
-lines of stdout are the kernel table and the result, as JSON.
+share).  The earlier phases run at the depth they had.
+
+The distributed programs (parallel_nbody_tpu_torch/parallel/):
+  - A. World size 1 on NCCL (a process group of this process alone): the
+    all-gather and ring programs and the 1x1 grid, N=65536 fp32 through K1
+    for 100 steps from the CLI's glibc init, each bit-equal to engine.run
+    with K1 launched once a step, their unordered pairs/s beside
+    engine.run's; fp64 trig at N=1024, the printout byte-equal.
+  - B. The ranks emulated on the card (parallel/emulate.py): for 2 and 4
+    all-gather and ring ranks and the grids 2x2, 1x4 and 4x1 at N=65536,
+    every rank's force computation through K1 at its offsets against the
+    same rank through the plain version, the ranks together against the
+    single-device K1 pass, and each rank's time; K2 through 2 all-gather
+    ranks at N=262144.  The state is random_state with one pair made
+    coincident across the middle, so the ranks' tagged flags differ.  Then
+    the sabotage: rank 1's row_g0 one tile low must fail.
+  - C. The CLI's spawned gloo ranks on this machine's CPU and torch, fp64
+    trig (N=97, 100 steps; --devices=4, --comm=ring, --mesh2d=2x2), two
+    ranks' directory checkpoint at 60 steps resumed by one rank, and
+    ``parallel.dryrun 4``: each printout byte-equal to one rank's; they run
+    in subprocesses beside the first phases, each killed at 300 s.  On the
+    card ``--devices=2`` exits 1 with the mesh message (one card; NCCL
+    takes one rank per card).
+  - D. ``--checkpoint`` into a directory at world size 1 on the card at 60
+    steps and ``--resume`` to 100: stdout byte-equal to 100 uninterrupted.
+
+Every phase passes or raises: any failure exits non-zero before the result
+lines.  The last two lines of stdout are the kernel table and the result,
+as JSON.
 
 Tolerances (each comparison uses the plain version's max |F| as the scale):
   - kernel vs plain version, fp32: 2e-5 * max|F| up to N=65536.  The
@@ -82,6 +108,14 @@ Tolerances (each comparison uses the plain version's max |F| as the scale):
   - frames, checkpoints and resume leave the printed state byte-equal: K1
     sums each row in a fixed order with no atomics, and the .npz holds the
     fp32 state exactly (as float64).
+  - world size 1 (A): bit-equal.  The programs make engine.step's call (the
+    same offsets and shapes), the tagged flag equals any_coincident's, the
+    ring makes no hop and the all-reduce is over one rank.
+  - emulated ranks (B): each rank's kernel call against its plain version
+    as above (2e-5 * max|F| for K1, 4e-5 for K2 at N=262144); the ranks
+    together against the single-device pass at the same bounds: the
+    all-gather ranks sum each row as the single pass does, the ring and
+    the grid sum the column blocks in another order.
 """
 
 from __future__ import annotations
@@ -92,6 +126,7 @@ import io
 import json
 import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -142,6 +177,21 @@ PLACED_ROWS, PLACED_COLS = (1000, 3000), (300, 4096)
 # The issue model of the pair loop: each SM has four schedulers, each
 # issuing one warp instruction (32 pairs) per clock.
 SCHEDULERS_PER_SM, WARP = 4, 32
+# The distributed programs.  Phase A: world size 1 on NCCL at K1's width;
+# fp64 trig printout at TRIG_N.  Phase B: the ranks emulated on the card,
+# from random_state (seed EMU_SEED) with the two bodies on either side of
+# the middle made coincident: the pair straddles the boundary of ranks
+# 0 | 1 of 2 and 1 | 2 of 4.  Phase C: the CLI's spawned gloo ranks on the
+# CPU, byte-equal to one rank, each run killed at CPU_RANKS_TIMEOUT.
+DIST_N, DIST_STEPS = MAIN_N, MAIN_STEPS
+TRIG_N, TRIG_STEPS = 1024, 10
+EMU_SEED = 1
+EMU_LAYOUTS = (("allgather", 2), ("allgather", 4), ("ring", 2), ("ring", 4),
+               ("grid2d", 2, 2), ("grid2d", 1, 4), ("grid2d", 4, 1))
+CPU_RANKS_N, CPU_RANKS_STEPS, CKPT_STEPS_CPU = 97, 100, 60
+CPU_RANKS_FLAGS = (["--devices=4"], ["--devices=4", "--comm=ring"],
+                   ["--mesh2d=2x2"])
+CPU_RANKS_TIMEOUT = 300
 
 
 def _cfg(dtype):
@@ -875,6 +925,458 @@ def phase_diagnostics(tmp, arena):
         raise AssertionError("--trace: the trace holds no device time")
 
 
+def _spawn_cpu(args, timeout=CPU_RANKS_TIMEOUT):
+    """``python args...`` on this machine's CPU (no card visible, one
+    thread per process) in a session of its own, killed with every rank it
+    started at the timeout.  Returns (rc, stdout, stderr, seconds)."""
+    env = dict(os.environ, NBODY_PLATFORM="cpu", CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1",
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable] + args, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError("%s: killed after %d s" % (" ".join(args),
+                                                        timeout))
+    return proc.returncode, out, err, time.perf_counter() - t0
+
+
+def _cpu_cli(argv):
+    rc, out, err, s = _spawn_cpu(["-m", "parallel_nbody_tpu_torch.cli"]
+                                 + argv)
+    if rc != 0:
+        raise AssertionError("cpu ranks: %s exited %d:\n%s"
+                             % (" ".join(argv), rc, err[-3000:]))
+    return out, s
+
+
+def _cpu_ranks_tasks(arena, tmp):
+    """Phase C's runs, each a task for a pool: the CLI's spawned gloo
+    ranks on this machine's torch (CPU), and the directory checkpoint
+    written by two ranks and resumed by one."""
+    base = [str(CPU_RANKS_N), "0", arena, str(CPU_RANKS_STEPS)]
+
+    def ranks(flags):
+        return lambda: _cpu_cli(base + flags)
+
+    def dryrun():
+        rc, out, err, s = _spawn_cpu(
+            ["-m", "parallel_nbody_tpu_torch.parallel.dryrun", "4"])
+        if rc != 0 or out.splitlines()[-1:] != ["MULTIHOST_OK"]:
+            raise AssertionError("dryrun 4 exited %d:\n%s\n%s"
+                                 % (rc, out, err[-3000:]))
+        return out, s
+
+    def checkpoint_two_ranks():
+        return _cpu_cli(base[:3] + [str(CKPT_STEPS_CPU), "--devices=2",
+                                    "--checkpoint=" + os.path.join(
+                                        tmp, "cpu_ranks_ck")])
+
+    tasks = {"dryrun 4": dryrun, "checkpoint": checkpoint_two_ranks}
+    for flags in CPU_RANKS_FLAGS:
+        tasks[" ".join(flags)] = ranks(flags)
+    return tasks
+
+
+def phase_cpu_ranks(futures, arena, tmp):
+    """Phase C: every spawned-rank run's stdout byte-equal to one rank's
+    (fp64 trig, N=CPU_RANKS_N, run here on the CPU), and so is one rank's
+    resume of the two ranks' directory checkpoint; dryrun 4 printed
+    MULTIHOST_OK; and on the card ``--devices=2`` exits 1 with the mesh
+    message (one card: NCCL takes one rank per card)."""
+    base = [str(CPU_RANKS_N), "0", arena, str(CPU_RANKS_STEPS)]
+    want, _ = _cli(base, "cpu")
+    results = {name: f.result() for name, f in futures.items()}
+    _, seconds = results.pop("checkpoint")
+    results["2 ranks checkpoint at %d, 1 rank resumed" % CKPT_STEPS_CPU] = (
+        _cli(base + ["--resume=" + os.path.join(tmp, "cpu_ranks_ck")],
+             "cpu")[0], seconds)
+    for name, (out, seconds) in results.items():
+        if name == "dryrun 4":
+            print("cpu ranks: dryrun 4 (%.1f s): %s"
+                  % (seconds, " | ".join(out.splitlines())))
+            continue
+        print("cpu ranks: %s N=%d %d steps (%.1f s): %s"
+              % (name, CPU_RANKS_N, CPU_RANKS_STEPS, seconds,
+                 "byte-equal to one rank" if out == want else "DIFFERS"))
+        if out != want:
+            raise AssertionError("cpu ranks %s: the printout differs from "
+                                 "the single rank's" % name)
+    _, err = _cli(["16", "0", arena, "3", "--devices=2"], "cuda", want_rc=1)
+    message = ("requested a 2-device mesh but only %d device(s) are "
+               "available (backend=cuda)" % torch.cuda.device_count())
+    print("cards: --devices=2 exits 1: %s" % err.strip().splitlines()[-1])
+    if message not in err:
+        raise AssertionError("--devices=2 on one card: %r" % err)
+
+
+def _engine_ref(cfg, st, steps):
+    """engine.run from ``st`` with the counts set to 0 just before it:
+    (state, seconds, K1 launches)."""
+    from parallel_nbody_tpu_torch.models.engine import run
+    from parallel_nbody_tpu_torch.ops import cuda_step
+    cuda_step.block_forces.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run(cfg, st, steps)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, cuda_step.block_forces.launches
+
+
+def _world_runners(cfg, steps):
+    from parallel_nbody_tpu_torch.parallel.grid2d import (make_grid2d_run,
+                                                          make_mesh2d)
+    from parallel_nbody_tpu_torch.parallel.mesh import make_mesh
+    from parallel_nbody_tpu_torch.parallel.sharded_step import \
+        make_sharded_run
+    mesh = make_mesh(1, "cuda")
+    return {"allgather": make_sharded_run(cfg, mesh, steps, "allgather"),
+            "ring": make_sharded_run(cfg, mesh, steps, "ring"),
+            "grid2d 1x1": make_grid2d_run(cfg, make_mesh2d(1, 1, "cuda"),
+                                          steps)}
+
+
+def phase_world_of_one(dev, tmp):
+    """Phase A: the three distributed programs under an NCCL process group
+    of this process alone, at N=DIST_N fp32 through K1 from the CLI's glibc
+    init (so the biased kernel runs), DIST_STEPS steps each with the counts
+    set to 0 just before: bit-equal to engine.run, K1 launched once a step,
+    their unordered pairs/s beside engine.run's (taken before and after);
+    then fp64 trig at N=TRIG_N, the printout byte-equal.  Returns
+    ({program: K1 launches}, {program: pairs/s}, any_coincident_tagged's ms
+    on a ring hop's and a grid step's inputs at world size 1)."""
+    import torch.distributed as dist
+
+    from parallel_nbody_tpu_torch.config import SimConfig
+    from parallel_nbody_tpu_torch.models.engine import run
+    from parallel_nbody_tpu_torch.ops import cuda_step
+    from parallel_nbody_tpu_torch.state import init_state
+    from parallel_nbody_tpu_torch.utils.output import (format_state,
+                                                       pair_interactions)
+    store = dist.FileStore(os.path.join(tmp, "nccl_store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    try:
+        cfg = _cfg("float32")
+        st = init_state(DIST_N, cfg, device=dev)
+        pairs = pair_interactions(DIST_N, DIST_STEPS)
+        runners = _world_runners(cfg, DIST_STEPS)
+        for runner in _world_runners(cfg, 1).values():
+            runner(st)  # NCCL's communicators and the kernels, untimed
+        want, t_engine, k1 = _engine_ref(cfg, st, DIST_STEPS)
+        rates = {"engine.run": pairs / t_engine}
+        launches = {}
+        for name, runner in runners.items():
+            cuda_step.block_forces.launches = 0
+            cuda_step.block_forces_streamed.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = runner(st)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches[name] = cuda_step.block_forces.launches
+            rates[name] = pairs / seconds
+            equal = all(torch.equal(g, w) for g, w in zip(got, want))
+            print("world of one (nccl) %-10s N=%d x %d steps: %.6f s, "
+                  "%.6e unordered pairs/s (engine.run %.6e), K1 launches "
+                  "%d, K2 %d, bit-equal to engine.run: %s"
+                  % (name, DIST_N, DIST_STEPS, seconds, rates[name],
+                     rates["engine.run"], launches[name],
+                     cuda_step.block_forces_streamed.launches, equal))
+            if not equal or launches[name] != DIST_STEPS or \
+                    cuda_step.block_forces_streamed.launches:
+                raise AssertionError("world of one %s: bit-equal %s, K1 %d "
+                                     "launches" % (name, equal,
+                                                   launches[name]))
+        _, t_after, _ = _engine_ref(cfg, st, DIST_STEPS)
+        print("world of one: engine.run again %.6e unordered pairs/s"
+              % (pairs / t_after))
+        ids = torch.arange(DIST_N, device=dev)
+        two = [torch.cat([t, t]) for t in (st.x, st.y, st.mass)]
+        tagged_ms = _time_ms(lambda: cuda_step.any_coincident_tagged(
+            *two, torch.cat([ids, ids])), 20)
+        print("world of one: any_coincident_tagged on 2 x %d bodies (a "
+              "ring hop's or a 1x1 grid step's input) %.6f ms, "
+              "any_coincident on %d %.6f ms"
+              % (DIST_N, tagged_ms, DIST_N, _time_ms(
+                  lambda: cuda_step.any_coincident(st.x, st.y, st.mass),
+                  20)))
+
+        trig = SimConfig(force_mode="trig", dtype="float64")
+        st64 = init_state(TRIG_N, trig, device=dev)
+        want = format_state(run(trig, st64, TRIG_STEPS))
+        for name, runner in _world_runners(trig, TRIG_STEPS).items():
+            if format_state(runner(st64)) != want:
+                raise AssertionError("world of one %s: fp64 trig printout "
+                                     "differs from engine.run's" % name)
+        print("world of one: fp64 trig N=%d x %d steps, the three programs' "
+              "printout byte-equal to engine.run's" % (TRIG_N, TRIG_STEPS))
+    finally:
+        dist.destroy_process_group()
+    return launches, rates, tagged_ms
+
+
+def _plain_auto(cfg, xi, yi, mi, ri, xj, yj, mj, rj, **kw):
+    """``block_forces_auto`` with the kernels' plain versions."""
+    from parallel_nbody_tpu_torch.ops import cuda_step
+    plain = (cuda_step.block_forces_streamed_reference
+             if max(xi.shape[0], xj.shape[0]) > cuda_step.STREAMED_ABOVE
+             else cuda_step.block_forces_reference)
+    return plain(cfg, xi, yi, mi, ri, xj, yj, mj, rj, **kw)
+
+
+@contextlib.contextmanager
+def _ranks_through(fn):
+    """The ranks' force functions call ``fn`` in place of
+    ``block_forces_auto``."""
+    from parallel_nbody_tpu_torch.parallel import grid2d, sharded_step
+    with mock.patch.object(sharded_step, "block_forces_auto", fn), \
+            mock.patch.object(grid2d, "block_forces_auto", fn):
+        yield
+
+
+def _emulation_state(n, dev):
+    """``random_state`` (seeded; no coincident pair) with bodies n/2 - 1
+    and n/2 made coincident, a pair across rank boundaries."""
+    from parallel_nbody_tpu_torch.state import random_state
+    gen = torch.Generator(device=dev).manual_seed(EMU_SEED)
+    st = random_state(n, _cfg("float32"), gen, device=dev)
+    x, y = st.x.clone(), st.y.clone()
+    x[n // 2], y[n // 2] = x[n // 2 - 1], y[n // 2 - 1]
+    return st._replace(x=x, y=y)
+
+
+def _rank_flags(st, layout):
+    """Which tagged coincidence flags are set: per rank of a ring, one per
+    hop; per rank of a grid, one per step."""
+    from parallel_nbody_tpu_torch.ops.cuda_step import any_coincident_tagged
+    from parallel_nbody_tpu_torch.parallel.grid2d import group_ids
+    p = layout[1] if layout[0] == "ring" else layout[1] * layout[2]
+    shard = st.n // p
+    full = (st.x, st.y, st.mass)
+    flags = []
+    if layout[0] == "ring":
+        ids = torch.arange(shard, device=st.x.device)
+        for k in range(p):
+            for s in range(p):
+                v = (k + s) % p
+                sl = [slice(k * shard, (k + 1) * shard),
+                      slice(v * shard, (v + 1) * shard)]
+                flags.append(bool(any_coincident_tagged(
+                    *(torch.cat([a[sl[0]], a[sl[1]]]) for a in full),
+                    torch.cat([k * shard + ids, v * shard + ids]))))
+        return flags
+    _, pr, pc = layout
+    for r in range(pr):
+        for c in range(pc):
+            gid_row, gid_col = group_ids(shard, r, c, pr, pc, st.x.device)
+            gid = torch.cat([gid_row, gid_col])
+            flags.append(bool(any_coincident_tagged(*(a[gid] for a in full),
+                                                    gid)))
+    return flags
+
+
+def _flag_ms(st, layout):
+    """The coincidence flag's ms in one step of rank 0: ``any_coincident``
+    on all N for the all-gather ranks, ``any_coincident_tagged`` on its p
+    hops of a ring (own + visiting block each) or on its row + col groups
+    on a grid.  Timed alone, this is mostly the rate at which the host
+    queues the sorts' launches."""
+    from parallel_nbody_tpu_torch.ops.cuda_step import (any_coincident,
+                                                        any_coincident_tagged)
+    if layout[0] == "allgather":
+        return _time_ms(lambda: any_coincident(st.x, st.y, st.mass), 20)
+    p = layout[1] if layout[0] == "ring" else layout[1] * layout[2]
+    shard = st.n // p
+    if layout[0] == "ring":
+        n_in, calls = 2 * shard, p
+    else:
+        n_in, calls = shard * (layout[1] + layout[2]), 1
+    args = [t[:n_in] for t in (st.x, st.y, st.mass)]
+    ids = torch.arange(n_in, device=st.x.device)
+    return calls * _time_ms(lambda: any_coincident_tagged(*args, ids), 20)
+
+
+def _check_layout(cfg, st, layout, whole, whole_ms, kernel=K1):
+    """One layout of phase B: every rank through the kernel (counted)
+    against the same rank through the plain version, the assembled forces
+    against the single-device pass ``whole``, and each rank's ms by CUDA
+    events.  Returns (max |error| of a rank, launches, [rank ms])."""
+    from parallel_nbody_tpu_torch.ops import cuda_step
+    from parallel_nbody_tpu_torch.parallel import emulate
+    from parallel_nbody_tpu_torch.parallel import sharded_step
+    progs = emulate.rank_programs(cfg, st, layout)
+    counter = getattr(cuda_step, kernel)
+    counter.launches = 0
+    auto = sharded_step.block_forces_auto  # what the ranks call now
+    calls = [[] for _ in progs]  # each rank's kernel calls, to replay
+    got = []
+    for rank, prog in enumerate(progs):
+        def record(cfg, *args, _calls=calls[rank], **kw):
+            _calls.append((args, kw))
+            return auto(cfg, *args, **kw)
+        with _ranks_through(record):
+            got.append(prog())
+    launches = counter.launches
+    with _ranks_through(_plain_auto):
+        want = [prog() for prog in progs]
+    torch.cuda.synchronize()
+    worst = 0.0
+    tol = TOL_BIG if kernel == K2 else TOL[torch.float32]
+    for rank, (g, w) in enumerate(zip(got, want)):
+        scale = max(float(t.abs().max()) for t in w)
+        err = max(float((a - b).abs().max()) for a, b in zip(g, w))
+        worst = max(worst, err)
+        if not err <= tol * scale:
+            raise AssertionError("%s rank %d: kernel vs plain max|err| %.6e "
+                                 "(max|F| %.6e)" % (layout, rank, err, scale))
+    full = emulate.combine(got, layout)
+    scale = max(float(t.abs().max()) for t in whole)
+    err = max(float((a - b).abs().max()) for a, b in zip(full, whole))
+    bit_equal = all(torch.equal(a, b) for a, b in zip(full, whole))
+    if not err <= tol * scale:
+        raise AssertionError("%s: the ranks together differ from the single-"
+                             "device pass by %.6e (max|F| %.6e)"
+                             % (layout, err, scale))
+    # Each rank's pass: its kernel calls alone, replayed; then its whole
+    # force computation (coincidence flag included), whose sorts' many
+    # small launches the host queues more slowly than the card runs them.
+    ms = [_time_ms(lambda rank_calls=rank_calls: [
+        auto(cfg, *a, **kw) for a, kw in rank_calls], 5, warmup=1)
+        for rank_calls in calls]
+    step_ms = [_time_ms(prog, 5, warmup=1) for prog in progs]
+    p = emulate.ranks(layout)
+    print("ranks %-13s N=%d through %s: %d launches; each rank vs its plain "
+          "version max|err| %.6e; whole vs single-device %.6e /max|F| "
+          "%.6e%s; rank passes ms %s (sum %.6f) vs the full pass / %d = "
+          "%.6f (%.3fx to %.3fx); with the flag ms %s; the flag alone "
+          "%.6f ms a step"
+          % ("x".join(map(str, layout[1:])) + " " + layout[0], st.n,
+             "K2" if kernel == K2 else "K1", launches, worst, err,
+             err / scale, ", bit-equal" if bit_equal else "",
+             " ".join("%.6f" % t for t in ms), sum(ms), p, whole_ms / p,
+             min(ms) / (whole_ms / p), max(ms) / (whole_ms / p),
+             " ".join("%.6f" % t for t in step_ms), _flag_ms(st, layout)))
+    return worst, launches, ms
+
+
+def phase_emulated_ranks(dev):
+    """Phase B: the ranks emulated on the one card (``parallel.emulate``).
+    For each of EMU_LAYOUTS at N=MAIN_N fp32 (random_state with a pair
+    coincident across rank boundaries, so the tagged flag is set on some
+    ranks and clear on others): every rank through K1 at its offsets
+    against its plain version, the whole against the single-device K1 pass,
+    each rank's kernel pass and whole step by CUDA events, and the flag's
+    time; then K2 through the
+    all-gather path at N=BIG_N over 2 ranks.  Returns ({layout: K1
+    launches}, K2 launches, max |error|)."""
+    from parallel_nbody_tpu_torch.ops import cuda_step
+    cfg = _cfg("float32")
+    st = _emulation_state(MAIN_N, dev)
+    b = _bodies(st)
+    flag = cuda_step.any_coincident(st.x, st.y, st.mass)
+    if not bool(flag):
+        raise AssertionError("emulation state: the placed pairs are not "
+                             "coincident")
+    whole = cuda_step.block_forces(cfg, *b, *b, biased=flag)
+    whole_ms = _time_ms(lambda: cuda_step.block_forces(cfg, *b, *b,
+                                                       biased=flag), 10)
+    print("ranks: the full K1 pass at N=%d (biased) %.6f ms; bodies %d and "
+          "%d coincident" % (MAIN_N, whole_ms, MAIN_N // 2 - 1, MAIN_N // 2))
+    launches, worst, clear = {}, 0.0, 0
+    for layout in EMU_LAYOUTS:
+        name = "x".join(map(str, layout[1:])) + " " + layout[0]
+        err, launches[name], _ = _check_layout(cfg, st, layout, whole,
+                                               whole_ms)
+        worst = max(worst, err)
+        if layout[0] != "allgather":
+            flags = _rank_flags(st, layout)
+            print("ranks %-13s tagged flags set %d of %d (%s)"
+                  % (name, sum(flags), len(flags),
+                     "".join("1" if f else "0" for f in flags)))
+            if not any(flags):
+                raise AssertionError("%s: no rank saw the placed pair" % name)
+            clear += len(flags) - sum(flags)
+    # A grid of one row or one column puts every body in each rank's
+    # groups; the rings and the 2x2 grid must leave some flags clear.
+    if not clear:
+        raise AssertionError("ranks: every tagged flag was set")
+    big = _emulation_state(BIG_N, dev)
+    bb = _bodies(big)
+    flag = cuda_step.any_coincident(big.x, big.y, big.mass)
+    whole_big = cuda_step.block_forces_streamed(cfg, *bb, *bb, biased=flag)
+    whole_big_ms = _time_ms(lambda: cuda_step.block_forces_streamed(
+        cfg, *bb, *bb, biased=flag), 3, warmup=1)
+    _, k2, _ = _check_layout(cfg, big, ("allgather", 2), whole_big,
+                             whole_big_ms, kernel=K2)
+    return launches, k2, worst
+
+
+def phase_sabotage_ranks(dev):
+    """Phase B must be able to fail: rank 1's row_g0 one tile (128) low
+    flips the kick of the pair across the boundary of 2 all-gather ranks,
+    and the ranks together must then disagree with the single-device pass,
+    or this phase raises."""
+    from parallel_nbody_tpu_torch.ops import cuda_step
+    cfg = _cfg("float32")
+    st = _emulation_state(MAIN_N, dev)
+    b = _bodies(st)
+    whole = cuda_step.block_forces(cfg, *b, *b, biased=True)
+
+    def shifted(cfg, *args, row_g0, **kw):
+        return cuda_step.block_forces_auto(
+            cfg, *args, row_g0=row_g0 - (cuda_step.TILE if row_g0 else 0),
+            **kw)
+
+    with _ranks_through(shifted):
+        try:
+            _check_layout(cfg, st, ("allgather", 2), whole, 1.0)
+        except AssertionError as e:
+            print("sabotage ranks: tripped as it must (%s)" % e)
+            return
+    raise AssertionError("sabotage ranks: rank 1's row_g0 one tile off "
+                         "agreed with the single-device pass")
+
+
+def phase_dir_checkpoint(tmp, arena, dev):
+    """Phase D on the card: ``--checkpoint`` into a directory at CKPT_STEPS
+    at world size 1, ``--resume`` to CKPT_TOTAL: stdout byte-equal to the
+    uninterrupted run's.  Returns (K1 launches of the resumed
+    run, save ms, load ms) — the two from save_state_dcp / load_state_dcp
+    of the N=MAIN_N state, host clock, device synchronized."""
+    from parallel_nbody_tpu_torch.utils import checkpoint as ckpt
+    base = [str(MAIN_N), "0", arena]
+    flags = ["--no-clamp", "--pallas"]
+    ck = os.path.join(tmp, "ck_dir")
+    full, _, _ = _k1_run(base + [str(CKPT_TOTAL)] + flags)
+    _k1_run(base + [str(CKPT_STEPS)] + flags + ["--checkpoint=" + ck])
+    resumed, _, k1 = _k1_run(base + [str(CKPT_TOTAL)] + flags
+                             + ["--resume=" + ck])
+    if resumed != full:
+        raise AssertionError("directory checkpoint: the resumed run's "
+                             "stdout differs from the uninterrupted run's")
+    t0 = time.perf_counter()
+    state, step, n_real = ckpt.load_state_dcp(ck, dev, torch.float32)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ckpt.save_state_dcp(os.path.join(tmp, "ck_dir2"), state, step, n_real)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    print("directory checkpoint N=%d: %d + %d steps byte-equal to %d "
+          "uninterrupted (K1 %d launches resumed); save_state_dcp %.3f ms, "
+          "load_state_dcp %.3f ms" % (MAIN_N, CKPT_STEPS,
+                                      CKPT_TOTAL - CKPT_STEPS, CKPT_TOTAL,
+                                      k1, save_ms, load_ms))
+    if k1 != CKPT_TOTAL - CKPT_STEPS + 1:
+        raise AssertionError("directory checkpoint: K1 launched %d times"
+                             % k1)
+    return k1, save_ms, load_ms
+
+
 def _time_ms(fn, reps, warmup=2):
     for _ in range(warmup):
         fn()
@@ -1254,13 +1756,27 @@ def main() -> int:
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     name, issue_hz = phase_device()
-    phase_build()
-    max_err_k1 = phase_compare(dev)
-    phase_sabotage(dev)
-    max_err_k2, plain_ms_k2 = phase_compare_streamed(dev)
-    phase_compensated(dev)
-    phase_bf16(dev)
-    phase_coincident(dev)
+    with contextlib.ExitStack() as stack:
+        # Phase C's CPU ranks run beside the build and the comparisons; they
+        # are done before the first phase that times the CLI.
+        cpu_tmp = stack.enter_context(tempfile.TemporaryDirectory())
+        cpu_arena = os.path.join(cpu_tmp, "arena.ppm")
+        ppm.create(cpu_arena, 1024, 768)
+        pool = concurrent.futures.ThreadPoolExecutor(3)
+        stack.callback(pool.shutdown, wait=True, cancel_futures=True)
+        cpu_ranks = {task: pool.submit(fn) for task, fn in
+                     _cpu_ranks_tasks(cpu_arena, cpu_tmp).items()}
+        phase_build()
+        max_err_k1 = phase_compare(dev)
+        phase_sabotage(dev)
+        max_err_k2, plain_ms_k2 = phase_compare_streamed(dev)
+        phase_compensated(dev)
+        phase_bf16(dev)
+        phase_coincident(dev)
+        t_wait = time.perf_counter()
+        phase_cpu_ranks(cpu_ranks, cpu_arena, cpu_tmp)
+        print("cpu ranks: joined at %.1f s, after %.1f s of waiting"
+              % (t_wait - t_start, time.perf_counter() - t_wait))
     with tempfile.TemporaryDirectory() as tmp:
         arena = os.path.join(tmp, "arena.ppm")
         ppm.create(arena, 1024, 768)
@@ -1269,12 +1785,22 @@ def main() -> int:
         render_ms, _ = phase_render(dev)
         launches_frames, _, _, _ = phase_frame_path(tmp, render_ms)
         launches_resumed, _, _ = phase_checkpoint(tmp, arena, dev)
+        launches_resumed_dir, _, _ = phase_dir_checkpoint(tmp, arena, dev)
         phase_diagnostics(tmp, arena)
     phase_state_streamed(dev)
     times = phase_timing(dev)
     times_big = phase_timing_streamed(dev)
     probe_events, probes = phase_probes(dev)
     _issue_report(_sass_census(), issue_hz, times, times_big, probe_events)
+    t_dist = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches_world, _, _ = phase_world_of_one(dev, tmp)
+    t_ranks = time.perf_counter()
+    launches_ranks, launches_ranks_k2, max_err_ranks = \
+        phase_emulated_ranks(dev)
+    phase_sabotage_ranks(dev)
+    print("world of one: %.1f s; emulated ranks and their sabotage: %.1f s"
+          % (t_ranks - t_dist, time.perf_counter() - t_ranks))
     print("chip_smoke: %.1f s" % (time.perf_counter() - t_start))
     source = "parallel_nbody_tpu_torch/csrc/%s"
     replaces = "parallel_nbody_tpu/ops/pallas_step.py:%d"
@@ -1286,6 +1812,10 @@ def main() -> int:
         "launches": launches_k1,
         "launches_frame_path": launches_frames,
         "launches_resumed_run": launches_resumed,
+        "launches_resumed_dir_run": launches_resumed_dir,
+        "launches_world_of_one": launches_world,
+        "launches_emulated_ranks": launches_ranks,
+        "max_abs_err_emulated_ranks": max_err_ranks,
         "max_abs_err": max_err_k1,
         "ms": times["kernel"],
         "ms_biased": times["kernel_biased"],
@@ -1297,6 +1827,7 @@ def main() -> int:
         "source": source % "forces_streamed.cu",
         "replaces": replaces % 344,
         "launches": launches_k2,
+        "launches_emulated_ranks": {"2 allgather": launches_ranks_k2},
         "max_abs_err": max_err_k2,
         "ms": times_big["K2"],
         "ms_biased": times_big["K2_biased"],

@@ -14,9 +14,14 @@ easy to find:
                                  ``csrc/bias_variants_probe.cu``) and the
                                  SASS census of the pair loops
   - ``models.engine``          — the single-device step loop
+  - ``parallel``               — the distributed programs on
+                                 ``torch.distributed`` (all-gather, ring,
+                                 2-D grid; one rank per process and device)
   - ``utils``                  — glibc-rand parity init, PPM header, output
-                                 contract, conversion from the JAX package
-  - ``cli``                    — the reference's argv contract
+                                 contract, checkpoints, timing, conversion
+                                 from the JAX package
+  - ``cli``                    — the reference's argv contract, on one
+                                 device or K ranks
 
 This package never imports JAX.
 """

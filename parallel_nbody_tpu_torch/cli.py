@@ -5,45 +5,66 @@ Reference CLI (nbody-seq.c:386-499):
     num_bodies secs_per_update ppm_output_file steps [--run-xps]
 
 plus the JAX package's extensions, parsed the same way (cli.py of
-``parallel_nbody_tpu``).  It runs one single-device simulation:
+``parallel_nbody_tpu``):
 
+    --devices=K       shard the body axis over K ranks, one device each
+                      (default: 1, or under a launcher every rank it started)
+    --comm=MODE       "allgather" (default) or "ring" (blocks travel the ring
+                      of ranks); ignored on one device
+    --mesh2d=RxC      2-D force-matrix decomposition over an R x C mesh of
+                      ranks (overrides --comm; 1x1 is one device)
     --fast            transcendental-free force path
     --pallas          the hand-written CUDA force kernels (implies --fast;
                       the flag keeps the JAX package's name): K1, or K2
-                      above 131072 bodies.  On a CPU device the kernels'
-                      plain PyTorch versions run.
+                      above 131072 bodies in either block.  On a CPU device
+                      the kernels' plain PyTorch versions run.
     --dtype=T         bfloat16 | float32 | float64 (default: float64 on
                       cpu, float32 on cuda)
     --no-clamp        allow N > 10000 (the reference clamps to MAXBODIES)
     --accum=A         plain | compensated (Kahan folds in the kernels'
                       partial sums; the dense path ignores it)
-    --run-xps         print the experiment CSV row instead of the state
-    --checkpoint=PATH save the final state and its step count; PATH must
-                      end in .npz (the exact host snapshot, in the JAX
-                      package's layout: either package resumes the other's)
-    --resume=PATH     restore a .npz snapshot and continue to ``steps``
+    --run-xps         print the experiment CSV row instead of the state (the
+                      parallel row, nbody-par.c:956, on more than one rank)
+    --measure-comm    with --run-xps on several ranks: time the step's
+                      collectives alone (utils/timing.measure_comm_fraction)
+                      for COMMTIME and RATIO
+    --xps-precise     COMMTIME and RATIO to 6 decimals
+    --checkpoint=PATH save the final state and its step count: PATH ending in
+                      .npz is the exact host snapshot in the JAX package's
+                      layout (either package resumes the other's); any other
+                      PATH is a directory that every rank writes its own
+                      shard into (torch.distributed.checkpoint)
+    --resume=PATH     restore a .npz or a checkpoint directory and continue
+                      to ``steps``; a directory whose padded length is this
+                      run's loads each rank's shard straight into place
     --check-nans      check the state after every step (a host read per
                       step: debug mode) and validate it after the run
     --trace=DIR       wrap the timed loop in a torch.profiler trace written
-                      under DIR, and report its collective share
+                      under DIR (rank 0), and report its collective share
     --chunk-steps=K   with frames, cap the steps between two looks at the
                       frame clock; without frames it changes nothing (each
                       step is already its own sequence of launches)
-    --openmp, --measure-comm, --xps-precise, --devices=1, --comm=MODE,
-    --mesh2d=1x1      accepted with the JAX CLI's single-device meaning
-                      (no effect on one device)
+    --openmp          accepted for the reference's argv (no effect)
 
 ``secs_per_update > 0`` renders a frame into the PPM whenever that many
 seconds of wall clock have passed (the reference's display+msync);
-``NBODY_FRAME_LOG=FILE`` appends one line per frame to FILE.
+``NBODY_FRAME_LOG=FILE`` appends one line per frame to FILE.  A run over
+ranks that this command spawned draws frames on rank 0 from the gathered
+state; under an external launcher no frames are drawn, as the reference's
+parallel binary draws none.
 
-Not yet ported; each exits 1 naming the flag: --devices=K>1, --mesh2d with
-more than one device, and --checkpoint= / --resume= of a directory (the
-sharded checkpoint).
+Ranks: one rank is one process with one device.  Outside a launcher
+``--devices=K`` (or ``--mesh2d``) spawns K ranks from this command
+(``parallel.multihost.spawn``), and rank 0's output is this command's.
+Under torchrun, or the JAX package's manual spelling (``COORDINATOR_ADDRESS``,
+``NBODY_NUM_PROCESSES``, ``NBODY_PROCESS_ID``), every rank runs this CLI,
+joins the group it finds, and ``--devices`` must equal its world size.
+Only rank 0 writes the state, the CSV row and the timing lines.
 
 The device comes from ``NBODY_PLATFORM=cpu|cuda``; unset, it is cuda.  The
 CLI runs on the CPU only under ``NBODY_PLATFORM=cpu``: without a CUDA device
-any other setting exits 1.
+any other setting exits 1, and so does a mesh of more ranks than cards
+(NCCL takes one rank per card).
 
 Behavioral contract preserved exactly:
   - positional args parsed with C atoi/atol semantics (non-numeric -> 0)
@@ -214,25 +235,6 @@ def parse_args(argv):
     return n, secsup, ppm_path, steps, opts
 
 
-def _unported(opts, n_dev: int) -> str | None:
-    """The first requested feature this CLI does not run yet, or None."""
-    checks = [
-        (n_dev > 1 and opts["mesh2d"] is None,
-         "--devices=%s" % opts["devices"]),
-        (n_dev > 1, "--mesh2d with more than one device"),
-        (opts["checkpoint"] is not None
-         and not opts["checkpoint"].endswith(".npz"),
-         "--checkpoint to a path that does not end in .npz (the sharded "
-         "checkpoint directory)"),
-        (opts["resume"] is not None and os.path.isdir(opts["resume"]),
-         "--resume from a directory (the sharded checkpoint)"),
-    ]
-    for requested, name in checks:
-        if requested:
-            return name
-    return None
-
-
 def _device(torch):
     """The run's device from NBODY_PLATFORM, or None after reporting why it
     is unusable."""
@@ -271,13 +273,12 @@ def main(argv=None) -> int:
 
     import torch
 
-    from .config import SimConfig
-    from .models.engine import run, step
-    from .state import init_state
-    from .utils import checkpoint as ckpt
+    from .parallel import multihost
     from .utils import ppm as ppmio
-    from .utils.output import format_state, nr_flops, xps_csv_seq
 
+    launched = multihost.running_under_pod_launcher()
+    rank, world = multihost.launcher_ranks() if launched else (0, 1)
+    rank0 = rank == 0
     device = _device(torch)
     if device is None:
         return 1
@@ -285,20 +286,14 @@ def main(argv=None) -> int:
         opts["dtype"] = "float64" if device.type == "cpu" else "float32"
 
     try:
-        ppm = ppmio.read_header(ppm_path)
+        ppmio.read_header(ppm_path)
     except (OSError, ppmio.PPMError) as e:
         sys.stderr.write("Cannot read %s: %s\n" % (ppm_path, e))
         return 1
 
-    cfg = SimConfig(
-        xdim=ppm.xdim, ydim=ppm.ydim,
-        force_mode="fast" if opts["fast"] else "trig",
-        dtype=opts["dtype"],
-        kernel="cuda" if opts["pallas"] else "dense",
-        accum=opts["accum"])
-
-    sys.stderr.write("Running N-body with %i bodies and %i steps\n"
-                     % (n, steps))
+    if rank0:
+        sys.stderr.write("Running N-body with %i bodies and %i steps\n"
+                         % (n, steps))
 
     if opts["mesh2d"]:
         n_dev = opts["mesh2d"][0] * opts["mesh2d"][1]
@@ -308,41 +303,168 @@ def main(argv=None) -> int:
                 "--devices=%d\n" % (opts["mesh2d"][0], opts["mesh2d"][1],
                                     n_dev, opts["devices"]))
             return 1
-        if n_dev == 1:
+        if n_dev == 1 and rank0:
             sys.stderr.write("Note: --mesh2d=1x1 is a single-device run "
                              "(no 2-D decomposition)\n")
     else:
-        n_dev = opts["devices"] or 1
-    # On one device --comm=ring has nothing to stream: ignored, as in the
-    # JAX CLI.
-    missing = _unported(opts, n_dev)
-    if missing is not None:
-        sys.stderr.write("%s is not yet ported to parallel_nbody_tpu_torch\n"
-                         % missing)
+        # One device, or under a launcher every rank it started (the JAX
+        # CLI's len(jax.devices())).
+        n_dev = opts["devices"] or world
+    args = (n, secsup, ppm_path, steps, opts, n_dev)
+    if launched and n_dev != world:
+        if rank0:
+            sys.stderr.write("%d devices requested, but the launcher started "
+                             "%d ranks (one rank is one device)\n"
+                             % (n_dev, world))
         return 1
+    if n_dev == 1:
+        return _simulate(device, *args, spawned=False)
+    if launched:
+        import torch.distributed as dist
+        try:
+            device = multihost.initialize(device.type)
+        except (RuntimeError, ValueError) as e:
+            sys.stderr.write("multihost init failed: %s\n" % e)
+            return 1
+        try:
+            return _simulate(device, *args, spawned=False)
+        finally:
+            dist.destroy_process_group()
+    if device.type == "cuda":
+        # Every rank needs a card of its own: NCCL refuses two ranks on one.
+        from .parallel.mesh import check_mesh_fits
+        try:
+            check_mesh_fits(opts["mesh2d"] or (n_dev,),
+                            torch.cuda.device_count(), "cuda")
+        except ValueError as e:
+            sys.stderr.write("%s\n" % e)
+            return 1
+    # One command, one result: spawn the ranks here, each with its share of
+    # this process's threads.
+    return multihost.spawn(_simulate, n_dev, device.type,
+                           args=args + (True,),
+                           threads=max(1, torch.get_num_threads() // n_dev))
 
+
+def _from_rank0(value: int, device) -> int:
+    """Rank 0's ``value`` on every rank (a broadcast), so that decisions
+    made from one rank's clock keep the ranks' collectives in step."""
+    import torch
+    import torch.distributed as dist
+    t = torch.tensor([value], dtype=torch.int64, device=device)
+    dist.broadcast(t, 0)
+    return int(t.item())
+
+
+def _simulate(device, n, secsup, ppm_path, steps, opts, n_dev,
+              spawned) -> int:
+    """The run on this process's device: the single-device run, or one rank
+    of an ``n_dev``-rank run in a process group that exists already (every
+    rank calls it; only rank 0 reports, as in nbody-par.c:939-959).
+    ``spawned``: the ranks were started by one command, which draws frames
+    from the gathered state as a single-process run does (the reference's
+    parallel binary, like an externally launched run, draws none)."""
+    import torch
+
+    from .config import SimConfig
+    from .models.engine import run, step
+    from .parallel import multihost
+    from .state import init_state, pad_state, unpad_state
+    from .utils import checkpoint as ckpt
+    from .utils import ppm as ppmio
+    from .utils.output import format_state, nr_flops, xps_csv_par, xps_csv_seq
+
+    multi = n_dev > 1
+    ppm = ppmio.read_header(ppm_path)
+    cfg = SimConfig(
+        xdim=ppm.xdim, ydim=ppm.ydim,
+        force_mode="fast" if opts["fast"] else "trig",
+        dtype=opts["dtype"],
+        kernel="cuda" if opts["pallas"] else "dense",
+        accum=opts["accum"])
+
+    rank0, mesh = True, None
+    host = device  # where the full state is built or restored
+    if multi:
+        import torch.distributed as dist
+
+        from .parallel.mesh import (gather_state, make_mesh, settle,
+                                    shard_state)
+        rank0 = dist.get_rank() == 0
+        host = torch.device("cpu")
+        if opts["mesh2d"]:
+            from .parallel.grid2d import make_grid2d_run, make_mesh2d
+            mesh = make_mesh2d(*opts["mesh2d"], device.type)
+        else:
+            from .parallel.sharded_step import make_sharded_run
+            mesh = make_mesh(n_dev, device.type)
+    # The kernels' 128-row blocks need tile-aligned shards.
+    pad_mult = n_dev * (128 if opts["pallas"] else 1)
+
+    # --resume: a directory is the sharded checkpoint, a file the .npz.  A
+    # directory whose padded length is this run's loads each rank's shard
+    # straight into place, on either mesh shape; any other loads whole.
     start_step = 0
+    pre_sharded = False
     if opts["resume"]:
         try:
-            state, start_step = ckpt.load_state(opts["resume"], device,
-                                                cfg.torch_dtype)
+            if os.path.isdir(opts["resume"]):
+                meta = ckpt.dcp_metadata(opts["resume"])
+                target = None
+                if multi and ckpt.dcp_saved_length(opts["resume"], meta) \
+                        == n + ((-n) % pad_mult):
+                    target = mesh
+                state, start_step, n_ck = ckpt.load_state_dcp(
+                    opts["resume"], device if target else host,
+                    cfg.torch_dtype, mesh=target, meta=meta)
+                if target is not None:
+                    n_real, pre_sharded = n_ck, True
+                else:
+                    state = unpad_state(state, n_ck)
+            else:
+                state, start_step = ckpt.load_state(opts["resume"], host,
+                                                    cfg.torch_dtype)
+                n_ck = state.n
         except (OSError, ValueError, KeyError, EOFError,
                 zipfile.BadZipFile) as e:
             # EOFError / BadZipFile: numpy's npz loader raises these (not
             # OSError) for truncated or corrupted archives.
-            sys.stderr.write("Cannot resume from %s: %s\n"
-                             % (opts["resume"], e))
+            if rank0:
+                sys.stderr.write("Cannot resume from %s: %s\n"
+                                 % (opts["resume"], e))
             return 1
-        if state.n != n:
-            sys.stderr.write("Checkpoint has %d bodies, expected %d\n"
-                             % (state.n, n))
+        if n_ck != n:
+            if rank0:
+                sys.stderr.write("Checkpoint has %d bodies, expected %d\n"
+                                 % (n_ck, n))
             return 1
     else:
-        state = init_state(n, cfg, device=device)
+        state = init_state(n, cfg, device=host)
     remaining = max(0, steps - start_step)
 
+    if multi and not pre_sharded:
+        state, n_real = pad_state(state, pad_mult)
+        state = shard_state(state, mesh, device)
+    elif not multi:
+        n_real = n
+
+    if not multi:
+        def advance(st, k, nan_check_from=None):
+            return run(cfg, st, k, nan_check_from)
+
+        def one_step(st):
+            return step(cfg, st)
+    else:
+        def advance(st, k, nan_check_from=None):
+            runner = (make_grid2d_run(cfg, mesh, k) if opts["mesh2d"]
+                      else make_sharded_run(cfg, mesh, k, opts["comm"]))
+            return runner(st, nan_check_from)
+
+        def one_step(st):
+            return advance(st, 1)
+
     def fence():
-        # Nothing in engine.run waits for the device: a host clock read
+        # Nothing in the run loops waits for the device: a host clock read
         # means completed work only after this.
         if device.type == "cuda":
             torch.cuda.synchronize(device)
@@ -352,11 +474,11 @@ def main(argv=None) -> int:
         # kernels (nvcc, at first use), launches the step's one, and warms the
         # sort and elementwise kernels — the counterpart of the JAX CLI's
         # AOT compile, so no build lands inside RTIME.
-        step(cfg, state)
+        one_step(state)
         fence()
 
     render_fn = None
-    if secsup > 0:
+    if secsup > 0 and (spawned or not multi):
         from .ops.render import render_frame
 
         # Optional frame accounting for tests/instrumentation: append one
@@ -364,13 +486,23 @@ def main(argv=None) -> int:
         frame_log = os.environ.get("NBODY_FRAME_LOG")
 
         def render_fn(st):
+            if multi:
+                st = unpad_state(gather_state(st), n_real)  # every rank
+                if not rank0:
+                    return
             frame = render_frame(cfg, st.x, st.y, st.radius, n).cpu().numpy()
             ppmio.write_pixels(ppm, frame)
             if frame_log:
                 _log_frame(frame_log, frame)
 
+    comm_time_per_step = 0.0
+    if opts["measure_comm"] and opts["run_xps"] and multi:
+        from .utils.timing import measure_comm_fraction
+        comm_time_per_step = measure_comm_fraction(
+            cfg, mesh, state, "grid2d" if opts["mesh2d"] else opts["comm"])
+
     # With frames the loop runs in chunks and looks at the clock between
-    # them.  Without frames --chunk-steps changes nothing: engine.run is
+    # them.  Without frames --chunk-steps changes nothing: the run loops are
     # already one sequence of launches per step, queued without a fence.
     chunk = max(1, min(1000, remaining // 20 or 1))
     if opts["chunk_steps"]:
@@ -382,16 +514,18 @@ def main(argv=None) -> int:
         # above was its first dispatch), and cap the chunk so the
         # between-chunk check runs at least about every ``secsup`` seconds.
         t_probe = time.time()
-        step(cfg, state)
+        one_step(state)
         fence()
         chunk = min(chunk, cadence_chunk_cap(secsup, time.time() - t_probe))
+        if multi:
+            chunk = _from_rank0(chunk, device)
 
     # --trace=DIR: wrap the timed region in a torch.profiler trace and
     # report the trace-derived collective share afterwards.  Profiling
     # overhead lands inside the timed region by nature; use untraced runs
     # for headline timing.
     tracer = None
-    if opts["trace"]:
+    if opts["trace"] and rank0:
         from .utils.timing import trace as trace_ctx
         tracer = trace_ctx(opts["trace"])
         try:
@@ -402,6 +536,8 @@ def main(argv=None) -> int:
             tracer = None
 
     nan_check_from = start_step if opts["check_nans"] else None
+    if multi:
+        settle(device)
     t0 = time.time()
     try:
         if render_fn is not None and remaining > 0:
@@ -411,7 +547,7 @@ def main(argv=None) -> int:
             done = 0
             while done < remaining:
                 k = min(chunk, remaining - done)
-                state = run(cfg, state, k, nan_check_from)
+                state = advance(state, k, nan_check_from)
                 done += k
                 if nan_check_from is not None:
                     nan_check_from += k
@@ -421,12 +557,17 @@ def main(argv=None) -> int:
                 # the reference's cadence (nbody-seq.c:467-471) is measured
                 # against completed simulation work.
                 fence()
-                if time.time() - lastup > secsup:
+                due = time.time() - lastup > secsup
+                if multi:
+                    due = bool(_from_rank0(int(due), device))
+                if due:
                     render_fn(state)
                     lastup = time.time()
         else:
-            state = run(cfg, state, remaining, nan_check_from)
+            state = advance(state, remaining, nan_check_from)
         fence()
+        if multi:
+            settle(device)
     except BaseException:
         # A failure mid-run (NaN under --check-nans, device error, Ctrl-C)
         # must still finalize the trace — it is exactly the profile the
@@ -456,17 +597,34 @@ def main(argv=None) -> int:
             except Exception as e:  # a missing/odd trace must not kill it
                 sys.stderr.write("Trace written to %s (share extraction "
                                  "failed: %s)\n" % (opts["trace"], e))
+    comm_time = comm_time_per_step * remaining
 
     # Throughput accounting covers only the steps actually executed (with
     # --resume that is fewer than ``steps``; a negative count runs none).
     flops = nr_flops(n, remaining)
     gflops = flops / 1e9 / rtime if rtime > 0 else float("nan")
 
-    if opts["checkpoint"]:
-        # The state's true step count: with --resume past the argv target
-        # (start_step > steps) no steps run, and recording argv's ``steps``
-        # would silently rewind the counter without rewinding the state.
-        done_steps = start_step + remaining
+    # The state's true step count: with --resume past the argv target
+    # (start_step > steps) no steps run, and recording argv's ``steps``
+    # would silently rewind the counter without rewinding the state.
+    done_steps = start_step + remaining
+    # A directory checkpoint is written from the still-sharded state, each
+    # rank its own shard (a collective); the .npz from the gathered state.
+    ckpt_dir = opts["checkpoint"] and not opts["checkpoint"].endswith(".npz")
+    if ckpt_dir:
+        try:
+            ckpt.save_state_dcp(opts["checkpoint"], state, done_steps,
+                                n_real, mesh)
+        except Exception as e:  # noqa: BLE001 — as the JAX CLI's guard:
+            # report, and still deliver the run's output.
+            if rank0:
+                sys.stderr.write("Cannot checkpoint to %s: %s\n"
+                                 % (opts["checkpoint"], e))
+
+    if multi:
+        state = unpad_state(gather_state(state), n_real)
+
+    if opts["checkpoint"] and not ckpt_dir and rank0:
         try:
             ckpt.save_state(opts["checkpoint"], state, done_steps)
         except OSError as e:
@@ -481,21 +639,29 @@ def main(argv=None) -> int:
         from .utils.debug import validate_state
         diag = validate_state(state, cfg.xdim, cfg.ydim)
         if not diag.ok():
-            sys.stderr.write("State validation FAILED: NaNs in %s\n"
-                             % ",".join(diag.nan_fields))
+            if rank0:
+                sys.stderr.write("State validation FAILED: NaNs in %s\n"
+                                 % ",".join(diag.nan_fields))
             return 1
-        sys.stderr.write(
-            "State validation ok: max|v|=%.3g max|f|=%.3g in_bounds=%s\n"
-            % (diag.max_speed, diag.max_force, diag.pos_in_bounds))
+        if rank0:
+            sys.stderr.write(
+                "State validation ok: max|v|=%.3g max|f|=%.3g in_bounds=%s\n"
+                % (diag.max_speed, diag.max_force, diag.pos_in_bounds))
 
-    if opts["run_xps"]:
-        sys.stdout.write(xps_csv_seq(n, rtime, gflops) + "\n")
-    else:
-        sys.stdout.write(format_state(state))
-    sys.stderr.write("\nN-body took: %.3f seconds\n" % rtime)
-    sys.stderr.write("Performance N-body: %.2f GFLOPS\n" % gflops)
+    # SIZE,NODES,CPUS_PER_NODE: devices, hosts, devices per host.
+    nodes = multihost.topology()["hosts"] if multi and opts["run_xps"] else 1
+    if rank0:
+        if not opts["run_xps"]:
+            sys.stdout.write(format_state(state))
+        elif multi:
+            sys.stdout.write(xps_csv_par(n_dev, nodes, n_dev // nodes, n,
+                                         rtime, comm_time, gflops,
+                                         precise=opts["xps_precise"]) + "\n")
+        else:
+            sys.stdout.write(xps_csv_seq(n, rtime, gflops) + "\n")
+        sys.stderr.write("\nN-body took: %.3f seconds\n" % rtime)
+        sys.stderr.write("Performance N-body: %.2f GFLOPS\n" % gflops)
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

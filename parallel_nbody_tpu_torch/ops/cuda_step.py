@@ -388,6 +388,16 @@ def cuda_forces(cfg: SimConfig, x, y, mass, radius, *, biased,
               accum=accum)
 
 
+def _lexsort(keys) -> torch.Tensor:
+    """The permutation that sorts by ``keys`` lexicographically (the first
+    key most significant): stable sorts from the least significant key."""
+    perm = torch.arange(keys[0].shape[0], device=keys[0].device)
+    for key in reversed(keys):
+        _, idx = torch.sort(key[perm], stable=True)
+        perm = perm[idx]
+    return perm
+
+
 def any_coincident(x, y, mass) -> torch.Tensor:
     """0-d bool tensor: True iff two DISTINCT massive bodies share a position
     exactly (pallas_step.py:535-555).  Computed on the tensors' device and
@@ -400,12 +410,33 @@ def any_coincident(x, y, mass) -> torch.Tensor:
     +0.0), since the kernel's dx/dy arithmetic treats them as coincident.
     """
     keys = (x + 0.0, y + 0.0, mass)
-    perm = torch.arange(x.shape[0], device=x.device)
-    for key in reversed(keys):  # least significant key first
-        _, idx = torch.sort(key[perm], stable=True)
-        perm = perm[idx]
+    perm = _lexsort(keys)
     xs, ys, ms = (key[perm] for key in keys)
     dup = (xs[1:] == xs[:-1]) & (ys[1:] == ys[:-1]) & (ms[:-1] > 0)
+    return torch.any(dup)
+
+
+def any_coincident_tagged(x, y, mass, gid) -> torch.Tensor:
+    """0-d bool tensor: True iff two bodies with DIFFERENT global ids share a
+    position and both have mass (pallas_step.py:558-577), on the tensors'
+    device.
+
+    For collections that hold several copies of one body — a ring rank's own
+    block beside the block visiting it (itself, at hop 0), a grid rank's row
+    and col groups, which overlap — where ``any_coincident`` would always
+    fire.  Stable sorts on (x, y, gid), the mass carried along, put copies
+    of one body next to each other (equal gid, ignored), while a coincident
+    pair of distinct bodies shows adjacent entries with differing gids.
+    Both masses must be positive: gid, not mass, breaks the ties, so a
+    massive body can sort beside a massless one at its position.  Signed
+    zeros are normalized as in ``any_coincident``.
+    """
+    keys = (x + 0.0, y + 0.0, gid)
+    perm = _lexsort(keys)
+    xs, ys, gs = (key[perm] for key in keys)
+    ms = mass[perm]
+    dup = ((xs[1:] == xs[:-1]) & (ys[1:] == ys[:-1]) & (gs[1:] != gs[:-1])
+           & (ms[:-1] > 0) & (ms[1:] > 0))
     return torch.any(dup)
 
 

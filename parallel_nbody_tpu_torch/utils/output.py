@@ -3,7 +3,8 @@
 ``print`` (nbody-seq.c:356-365) emits one line per body:
 ``"%10.3f %10.3f %10.3f %10.3f %10.3f %10.3f\n"`` of
 (x, y, xf, yf, xv, yv) — final positions/velocities, last step's forces.
-The experiment CSV (``--run-xps``) format follows nbody-seq.c:488.
+The experiment CSV (``--run-xps``) formats follow nbody-seq.c:488 and
+nbody-par.c:954-957.
 
 This is the only place where the state's tensors go to the host.
 """
@@ -55,3 +56,22 @@ def pair_interactions(n: int, steps: int) -> int:
 def xps_csv_seq(n: int, rtime: float, gflops: float) -> str:
     """Sequential experiment CSV row (nbody-seq.c:488): NBODIES,RTIME,GFLOPS."""
     return "%d,%.3f, %.2f" % (n, rtime, gflops)
+
+
+def xps_csv_par(size: int, nodes: int, cpus_per_node: int, n: int,
+                rtime: float, comm_time: float, gflops: float,
+                precise: bool = False) -> str:
+    """Parallel experiment CSV row (nbody-par.c:956):
+    ``"%d,%d,%d,%d,%.3f,%.3f,%.3f,%.2f"`` for
+    SIZE,NODES,CPUS_PER_NODE,NBODIES,RTIME,COMMTIME,RATIO,GFLOPS (no space
+    before GFLOPS — only the SEQ row has one, nbody-seq.c:488).
+
+    ``precise=True`` (CLI ``--xps-precise``) widens COMMTIME/RATIO to 6
+    decimals, so that per-step collectives well under a millisecond stay
+    distinguishable from zero; it leaves the reference's byte contract,
+    which is why it is opt-in."""
+    ratio = comm_time / rtime if rtime > 0 else 0.0
+    fmt = ("%d,%d,%d,%d,%.3f,%.6f,%.6f,%.2f" if precise
+           else "%d,%d,%d,%d,%.3f,%.3f,%.3f,%.2f")
+    return fmt % (size, nodes, cpus_per_node, n, rtime, comm_time, ratio,
+                  gflops)

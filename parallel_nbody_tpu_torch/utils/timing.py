@@ -1,12 +1,15 @@
-"""Instrumentation: wall-clock timing and profiler traces.
+"""Instrumentation: wall-clock timing, communication time and profiler
+traces.
 
-``trace`` wraps a region in a ``torch.profiler`` trace (CPU activity, and
-CUDA activity when a card is present) and writes it as a gzipped Chrome
-trace under the given directory; ``trace_comm_share`` reads the newest trace
-there and reports how much of the leaf op time went to collectives.  On one
-device that share is zero; the sharded programs use it to measure their
-communication inside the real program instead of timing it in isolation
-(reference bracket: nbody-par.c:912-918).
+The reference brackets its per-step MPI_Allgatherv with MPI_Wtime under
+``--measure-comm`` (nbody-par.c:912-918).  ``measure_comm_fraction`` times
+the sharded step's collectives alone, on the same shards, as the JAX
+package times a comm-only program.  ``trace`` wraps a region in a
+``torch.profiler`` trace (CPU activity, and CUDA activity when a card is
+present) and writes it as a gzipped Chrome trace under the given directory;
+``trace_comm_share`` reads the newest trace there and reports how much of
+the leaf op time went to collectives (gloo and NCCL operations), measured
+inside the real program.  On one device that share is zero.
 """
 
 from __future__ import annotations
@@ -20,6 +23,58 @@ import shutil
 import time
 
 from .output import nr_flops, pair_interactions
+
+
+def measure_comm_fraction(cfg, mesh, state, comm: str,
+                          iters: int = 30) -> float:
+    """Per-step communication time (seconds) of the sharded step's
+    collectives, timed alone on this rank's shard ``state``: the positional
+    all-gather, the ring's p - 1 hops of one packed (4, shard) block, or the
+    grid's row and col gathers and its all-reduce (``comm="grid2d"``).  A
+    collective: every rank calls it.  One untimed round first; the timed
+    rounds end with a synchronize and a barrier, so the figure covers the
+    slowest rank.  ``cfg`` is unused (kept for the JAX signature)."""
+    import torch
+    import torch.distributed as dist
+
+    from ..parallel.mesh import (BODY_AXIS, all_gather, ring_hop,
+                                 ring_neighbours, settle)
+
+    x, y = state.x, state.y
+    if comm == "grid2d":
+        from ..parallel.grid2d import COL_AXIS, ROW_AXIS
+        rows, cols = mesh.get_group(ROW_AXIS), mesh.get_group(COL_AXIS)
+
+        def exchange():
+            fx, fy = all_gather(x, cols), all_gather(y, cols)
+            all_gather(x, rows)
+            all_gather(y, rows)
+            dist.all_reduce(fx, group=cols)
+            dist.all_reduce(fy, group=cols)
+    elif comm == "allgather":
+        group = mesh.get_group(BODY_AXIS)
+
+        def exchange():
+            all_gather(x, group)
+            all_gather(y, group)
+    else:
+        left, right = ring_neighbours(mesh)
+        hops = mesh.size() - 1
+
+        def exchange():
+            vb = torch.stack([x, y, x, y])
+            for _ in range(hops):
+                vb, reqs = ring_hop(vb, left, right)
+                for req in reqs:
+                    req.wait()
+
+    exchange()
+    settle(x.device)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        exchange()
+    settle(x.device)
+    return (time.perf_counter() - t0) / iters
 
 
 class StepTimer:
@@ -92,10 +147,17 @@ _TRACE_COLLECTIVE = ("nccl", "gloo", "c10d", "all_gather", "allgather",
                      "all_to_all", "alltoall")
 
 
-def _leaf_events(events):
-    """The events that contain no other event of their thread: operators
-    nest (``aten::add`` calls ``aten::to``), and summing a parent with its
-    children would count the children's time twice."""
+def _is_collective(name: str) -> bool:
+    return any(c in name.lower() for c in _TRACE_COLLECTIVE)
+
+
+def _host_leaves(events):
+    """(event, collective) for the operators that contain no other operator
+    of their thread: operators nest (``aten::add`` calls ``aten::to``), and
+    summing a parent with its children would count the children's time
+    twice.  ``collective`` is the name of the outermost collective operator
+    that contains the leaf, or is the leaf (``c10d::allgather_`` runs
+    copies), else None."""
     lanes: dict = {}
     for e in events:
         lanes.setdefault((e.get("pid"), e.get("tid")), []).append(e)
@@ -103,20 +165,28 @@ def _leaf_events(events):
         # A parent sorts just before its first child: same or earlier start,
         # longer duration.
         lane.sort(key=lambda e: (e["ts"], -e["dur"]))
+        ancestors = []  # (end, collective) of the open operators
         for e, nxt in zip(lane, lane[1:] + [None]):
+            while ancestors and ancestors[-1][0] <= e["ts"]:
+                ancestors.pop()
+            outer = ancestors[-1][1] if ancestors else None
+            coll = outer or (e["name"] if _is_collective(e["name"]) else None)
             if nxt is None or nxt["ts"] >= e["ts"] + e["dur"]:
-                yield e
+                yield e, coll
+            else:
+                ancestors.append((e["ts"] + e["dur"], coll))
 
 
 def trace_comm_share(log_dir: str) -> dict:
     """Collective share read from the newest trace under ``log_dir``.
 
-    Sums complete-event durations of the device's kernels and copies; a
-    trace without any (a run on the CPU) sums the leaf operators instead.
-    Collectives are classified by name.  Durations aggregate over every
-    stream and thread, so the SHARE is meaningful even where the absolute
-    sums exceed wall time.  Returns {"collective_us", "op_us", "share",
-    "by_op": {name: us}}.
+    Sums complete-event durations of the device's kernels and copies,
+    collectives (NCCL's kernels) classified by name; a trace without any (a
+    run on the CPU) sums the leaf operators instead, and counts as
+    collective time those inside a collective operator (gloo's).  Durations
+    aggregate over every stream and thread, so the SHARE is meaningful even
+    where the absolute sums exceed wall time.  Returns {"collective_us",
+    "op_us", "share", "by_op": {name: us}}.
     """
     # A reused log_dir accumulates runs, and summing them all would blend
     # different programs into one bogus share: read only the newest.
@@ -127,18 +197,30 @@ def trace_comm_share(log_dir: str) -> dict:
     with gzip.open(max(files, key=os.path.getmtime), "rt") as fh:
         events = json.load(fh).get("traceEvents", [])
     complete = [e for e in events if e.get("ph") == "X" and "dur" in e]
-    ops = [e for e in complete if e.get("cat") in _DEVICE_CATEGORIES]
+    ops = [(e, e["name"] if _is_collective(e.get("name", "")) else None)
+           for e in complete if e.get("cat") in _DEVICE_CATEGORIES]
     if not ops:
-        ops = list(_leaf_events(
+        ops = list(_host_leaves(
             [e for e in complete if e.get("cat") == _HOST_OP_CATEGORY]))
     coll_us = 0.0
     op_us = 0.0
     by_op: dict = {}
-    for e in ops:
-        name = e.get("name", "")
+    for e, coll in ops:
         op_us += e["dur"]
-        if any(c in name.lower() for c in _TRACE_COLLECTIVE):
+        if coll is not None:
             coll_us += e["dur"]
-            by_op[name] = by_op.get(name, 0.0) + e["dur"]
+            by_op[coll] = by_op.get(coll, 0.0) + e["dur"]
     return {"collective_us": coll_us, "op_us": op_us,
             "share": coll_us / op_us if op_us else 0.0, "by_op": by_op}
+
+
+def profile_comm_share(run_fn, state, log_dir: str) -> dict:
+    """Trace one call of a runner (``engine.run``'s, or a rank's from
+    ``parallel``) on ``state`` and return its measured collective share
+    (see ``trace_comm_share``)."""
+    import torch
+    with trace(log_dir):
+        out = run_fn(state)
+        if out.x.device.type == "cuda":
+            torch.cuda.synchronize(out.x.device)
+    return trace_comm_share(log_dir)

@@ -1,7 +1,7 @@
 """The port's slice whole: engine.run and the CLI against the golden
 fixtures (byte for byte, fp64 trig on the CPU), the kernel path against the
-JAX package's Pallas engine, and the CLI's contract for flags and
-devices.  The flags that run on one device are driven in
+JAX package's Pallas engine, and the CLI's contract for flags, devices and
+launchers.  The flags that run on one device are driven in
 test_torch_driver.py and test_torch_diag.py.
 """
 
@@ -20,8 +20,10 @@ from parallel_nbody_tpu_torch import cli
 from parallel_nbody_tpu_torch.config import SimConfig
 from parallel_nbody_tpu_torch.models.engine import run
 from parallel_nbody_tpu_torch.state import init_state
+from parallel_nbody_tpu_torch.utils import checkpoint as ckpt
 from parallel_nbody_tpu_torch.utils import ppm
 from parallel_nbody_tpu_torch.utils.output import format_state
+from torch_cases import spawned
 
 torch.set_num_threads(1)
 
@@ -155,16 +157,68 @@ def test_clamp_and_atoi(arena, capsys, monkeypatch):
     "--devices=2", "--mesh2d=1x2", "--mesh2d=2x2", "--checkpoint=DIR",
     "--checkpoint=DIR/ck", "--resume=DIR"])
 def test_unported_flags_exit_1(flag, arena, tmp_path, capsys, monkeypatch):
-    """What is left of the multi-device programs: more than one device, and
-    the sharded checkpoint (a directory; for --checkpoint any path that
-    does not end in .npz).  Refused before any step runs."""
-    argv = ["16", "0", arena, "3", flag.replace("DIR", str(tmp_path))]
-    rc, out, err = _main(argv, capsys, monkeypatch)
+    """The argvs that the port refused before its distributed programs
+    existed (more than one device; a directory as checkpoint or resume) now
+    run: each prints the single-device run's state.  The ranks are spawned
+    by the CLI in a process group of their own, under a timeout; a
+    directory checkpoint holds the state after 3 steps."""
+    argv = ["16", "0", arena, "3"]
+    _, single, _ = _main(argv, capsys, monkeypatch)
+    arg = flag.replace("DIR", str(tmp_path))
+    if flag.startswith("--resume"):
+        rc, _, err = _main(["16", "0", arena, "1", "--checkpoint="
+                            + str(tmp_path)], capsys, monkeypatch)
+        assert rc == 0, err
+    if flag.startswith(("--devices", "--mesh2d")):
+        rc, out, err = spawned(["-m", "parallel_nbody_tpu_torch.cli"] + argv
+                               + [arg])
+    else:
+        rc, out, err = _main(argv + [arg], capsys, monkeypatch)
+    assert rc == 0, err
+    assert out == single
+    assert "N-body took" in err
+    if flag.startswith("--checkpoint"):
+        path = arg.split("=", 1)[1]
+        assert ckpt.dcp_saved_length(path) == 16
+        state, step, n_real = ckpt.load_state_dcp(path, "cpu", torch.float64)
+        assert (step, n_real) == (3, 16)
+
+
+@pytest.mark.parametrize("flags, message", [
+    (["--devices=2"], "requested a 2-device mesh but only 1 device(s) are "
+                      "available (backend=cuda)"),
+    (["--mesh2d=2x2"], "requested a 2x2 mesh (4 devices) but only 1 "
+                       "device(s) are available")])
+def test_more_ranks_than_cards_exits_1(flags, message, arena, capsys,
+                                       monkeypatch):
+    """NCCL takes one rank per card: on a machine with one card a mesh of
+    two ranks exits 1 with the JAX package's mesh message, before any rank
+    starts."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    rc, out, err = _main(["16", "0", arena, "3"] + flags, capsys,
+                         monkeypatch, platform="cuda")
     assert rc == 1 and out == ""
-    assert "not yet ported" in err
-    assert flag.split("=")[0] in err
-    assert "N-body took" not in err
-    assert os.listdir(tmp_path) == []
+    assert message in err and "N-body took" not in err
+
+
+@pytest.mark.parametrize("env", [dict(RANK="0", WORLD_SIZE="2"),
+                                 dict(COORDINATOR_ADDRESS="localhost:1",
+                                      NBODY_NUM_PROCESSES="3",
+                                      NBODY_PROCESS_ID="0")],
+                         ids=["torchrun", "coordinator"])
+def test_devices_must_match_launcher_world_size(env, arena, capsys,
+                                                monkeypatch):
+    """Under a launcher every rank runs the CLI: --devices must be the
+    world size it set, or the CLI exits 1 before joining any group."""
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    rc, out, err = _main(["16", "0", arena, "3", "--devices=4"], capsys,
+                         monkeypatch)
+    world = env.get("WORLD_SIZE") or env["NBODY_NUM_PROCESSES"]
+    assert rc == 1 and out == ""
+    assert ("4 devices requested, but the launcher started %s ranks"
+            % world) in err
 
 
 def _table(out, n):

@@ -631,3 +631,127 @@ def test_diagnostics_on_card_match_cpu(dev):
     assert dc.ok() and dc.pos_in_bounds and dc.nan_fields == dh.nan_fields
     assert dc.max_speed == pytest.approx(dh.max_speed, rel=1e-12)
     assert dc.max_force == pytest.approx(dh.max_force, rel=1e-9)
+
+
+# ---------------------------------------------------------------------------
+# the distributed programs' path on one card
+# ---------------------------------------------------------------------------
+
+TAGGED_SEEDS = range(4)
+
+
+def _tagged_input(seed, dev):
+    """Own + visiting blocks as a ring hop sees them: 256 glibc-like bodies
+    (coincident pairs with odd seeds), each body twice at seed 0 and 1 (a
+    block visiting itself), a massless body on a massive one at seed 2."""
+    x, y, m, _ = glibc_like(256, seed, ((3, 200),) if seed % 2 else ())
+    x = x + np.random.RandomState(seed).uniform(0.1, 0.9, 256)
+    if seed % 2:
+        x[200] = x[3]
+    gid = np.arange(256)
+    if seed < 2:
+        x, y, m, gid = (np.concatenate([a, a]) for a in (x, y, m, gid))
+    if seed == 2:
+        x[9], y[9], m[9] = x[4], y[4], 0.0
+    return [torch.tensor(a, device=dev) for a in (x, y, m, gid)]
+
+
+@pytest.mark.parametrize("seed", TAGGED_SEEDS)
+def test_any_coincident_tagged_on_card(seed, dev):
+    card = _tagged_input(seed, dev)
+    flag = cuda_step.any_coincident_tagged(*card)
+    assert flag.device == card[0].device and flag.dim() == 0
+    assert bool(flag) == bool(cuda_step.any_coincident_tagged(
+        *(t.cpu() for t in card))) == bool(seed % 2)
+
+
+RANK_LAYOUTS = [("allgather", 2), ("allgather", 4), ("ring", 2), ("ring", 4),
+                ("grid2d", 2, 2), ("grid2d", 1, 4), ("grid2d", 4, 1)]
+
+
+def _plain_auto(cfg, xi, yi, mi, ri, xj, yj, mj, rj, **kw):
+    plain = (cuda_step.block_forces_streamed_reference
+             if max(xi.shape[0], xj.shape[0]) > cuda_step.STREAMED_ABOVE
+             else cuda_step.block_forces_reference)
+    return plain(cfg, xi, yi, mi, ri, xj, yj, mj, rj, **kw)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("layout", RANK_LAYOUTS,
+                         ids=lambda l: "x".join(map(str, l[1:])) + "-" + l[0])
+def test_rank_kernels_match_plain_versions(layout, dtype, dev, monkeypatch):
+    """Every rank's force computation at N=4096 (glibc init, coincident
+    pairs on and across rank boundaries) through K1 at the rank's offsets
+    and rectangular shapes, against the same rank through K1's plain
+    version on the card; each rank launches K1 once per call (the grid
+    once per chunk)."""
+    from parallel_nbody_tpu_torch.parallel import emulate, grid2d, sharded_step
+    cfg = SimConfig(force_mode="fast", dtype=dtype, kernel="cuda")
+    st = init_state(4096, cfg, device=dev)
+    cuda_step.block_forces.launches = 0
+    got = [prog() for prog in emulate.rank_programs(cfg, st, layout)]
+    p = emulate.ranks(layout)
+    calls = p * (layout[1] if layout[0] == "grid2d" else
+                 p if layout[0] == "ring" else 1)
+    assert cuda_step.block_forces.launches == calls
+    for module in (sharded_step, grid2d):
+        monkeypatch.setattr(module, "block_forces_auto", _plain_auto)
+    want = [prog() for prog in emulate.rank_programs(cfg, st, layout)]
+    for rank, (g, w) in enumerate(zip(got, want)):
+        for gf, wf in zip(g, w):
+            scale = float(wf.abs().max())
+            err = float((gf - wf).abs().max())
+            assert err <= TOL[dtype] * scale, (rank, err, scale)
+
+
+@pytest.mark.parametrize("biased", [True, False])
+def test_streamed_kernel_at_ring_offsets(biased, dev):
+    """K2 on a ring hop's shapes: 1000 rows at row_g0=3000 against a
+    visiting block of 3000 columns at col_g0=7000 (bands of 1024 with a
+    ragged tail), fp32, against its plain version."""
+    cfg = SimConfig(force_mode="fast", dtype="float32", kernel="cuda")
+    st = init_state(10000, cfg, device=dev)
+    full = (st.x, st.y, st.mass, st.radius)
+    rows = [t[3000:4000].contiguous() for t in full]
+    cols = [t[7000:10000].contiguous() for t in full]
+    flag = torch.tensor(biased, device=dev)
+    kw = dict(row_g0=3000, col_g0=7000, band=1024, biased=flag)
+    got = cuda_step.block_forces_streamed(cfg, *rows, *cols, **kw)
+    want = cuda_step.block_forces_streamed_reference(cfg, *rows, *cols, **kw)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= \
+            TOL["float32"] * float(w.abs().max())
+
+
+@pytest.fixture
+def nccl_world_of_one(dev, tmp_path):
+    """A process group of this process alone, on NCCL."""
+    import torch.distributed as dist
+    store = dist.FileStore(str(tmp_path / "store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    yield
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("program", ["allgather", "ring", "grid2d"])
+def test_world_of_one_on_nccl_is_engine_run(program, dev, nccl_world_of_one):
+    """World size 1: the same offsets and shapes as the single-device step,
+    the tagged flag equal to any_coincident's, no ring hop, an all-reduce
+    over one rank — bit-equal to engine.run, one K1 launch a step."""
+    from parallel_nbody_tpu_torch.parallel.grid2d import (make_grid2d_run,
+                                                          make_mesh2d)
+    from parallel_nbody_tpu_torch.parallel.mesh import make_mesh
+    from parallel_nbody_tpu_torch.parallel.sharded_step import \
+        make_sharded_run
+    cfg = SimConfig(force_mode="fast", dtype="float32", kernel="cuda")
+    st = init_state(4096, cfg, device=dev)
+    want = run(cfg, st, 5)
+    if program == "grid2d":
+        runner = make_grid2d_run(cfg, make_mesh2d(1, 1, "cuda"), 5)
+    else:
+        runner = make_sharded_run(cfg, make_mesh(1, "cuda"), 5, program)
+    cuda_step.block_forces.launches = 0
+    got = runner(st)
+    assert cuda_step.block_forces.launches == 5
+    for f, g, w in zip(got._fields, got, want):
+        assert torch.equal(g, w), f

@@ -315,8 +315,26 @@ def test_port_never_imports_jax():
     walked = set(r.stdout.split())
     for name in ("cli", "__main__", "models.engine", "ops.cuda_step",
                  "ops._build", "benchmarks.roofline_probe",
-                 "benchmarks.bias_variants_probe", "utils.convert"):
+                 "benchmarks.bias_variants_probe", "utils.convert",
+                 "parallel.mesh", "parallel.sharded_step", "parallel.grid2d",
+                 "parallel.multihost", "parallel.emulate",
+                 "parallel.dryrun"):
         assert "parallel_nbody_tpu_torch." + name in walked, name
+
+
+def test_packaging_ships_the_parallel_subpackage():
+    """pyproject.toml's package patterns take in every subpackage of the
+    port, ``parallel`` included."""
+    import tomllib
+
+    from setuptools import find_packages
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        include = tomllib.load(f)["tool"]["setuptools"]["packages"]["find"][
+            "include"]
+    found = set(find_packages(REPO, include=include))
+    assert {"parallel_nbody_tpu_torch.parallel",
+            "parallel_nbody_tpu_torch.ops",
+            "parallel_nbody_tpu_torch.utils"} <= found
 
 
 def test_package_data_ships_every_kernel_source():

@@ -1,7 +1,14 @@
-"""Inputs shared by the port's kernel tests (imports no JAX, so the card
-tests in test_torch_gpu.py can use it where JAX is absent)."""
+"""Inputs and helpers shared by the port's tests (imports no JAX, so the
+card tests in test_torch_gpu.py can use it where JAX is absent)."""
+
+import os
+import signal
+import subprocess
+import sys
 
 import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 KICK = 38.5 / 9.0  # G * 5 * 7 / (1.5 + 1.5)^2, tests/test_coincident.py
 
@@ -125,3 +132,24 @@ def probe_inputs(n, seed, square=False):
     for a, b in PROBE_COINCIDENT:
         rows[0][b], rows[1][b] = rows[0][a], rows[1][a]
     return rows + [a.copy() for a in rows]
+
+
+def spawned(args, timeout=180):
+    """Run ``python args...`` from the repo on the CPU (NBODY_PLATFORM=cpu,
+    one thread per process) in a new session: a multi-process case with a
+    timeout of its own.  Returns (rc, stdout, stderr); at the timeout the
+    whole session — the command and every rank it started — is killed and
+    AssertionError raised."""
+    env = dict(os.environ, NBODY_PLATFORM="cpu", PYTHONPATH=REPO,
+               OMP_NUM_THREADS="1")
+    proc = subprocess.Popen([sys.executable] + args, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env,
+                            cwd=REPO, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError("%s: still running after %d s, process group "
+                             "killed" % (" ".join(args), timeout))
+    return proc.returncode, out, err

@@ -62,6 +62,20 @@ The distributed programs (parallel_nbody_tpu_torch/parallel/):
   - D. ``--checkpoint`` into a directory at world size 1 on the card at 60
     steps and ``--resume`` to 100: stdout byte-equal to 100 uninterrupted.
 
+The accuracy tools and entry points, last, each with its wall time and its
+kernel launches (the counts set to 0 just before it):
+  - hw_validate: ``benchmarks/hw_validate.run_gate`` at its full sizes,
+    cases A, F, B, B', R0-R2, C, D, D', E and the gravity-flip sabotage
+    against float64, one line per case with its worst error beside its
+    tolerance (the JAX gate's, stated in that module); K1 100 and K2 142
+    launches.
+  - drift: ``benchmarks/drift_study.run_study`` at N=65536 for fp32 plain,
+    fp32 compensated and bf16, 1000 steps deep (the energy at 0, 500 and
+    1000; the full 5000 steps are run by hand).
+  - animate: ``examples/animate.record`` at N=4096, 200 steps recorded
+    every 50 on the card.
+  - entry: ``entry()``'s fn on the card, one step.
+
 Every phase passes or raises: any failure exits non-zero before the result
 lines.  The last two lines of stdout are the kernel table and the result,
 as JSON.
@@ -116,6 +130,13 @@ Tolerances (each comparison uses the plain version's max |F| as the scale):
     together against the single-device pass at the same bounds: the
     all-gather ranks sum each row as the single pass does, the ring and
     the grid sum the column blocks in another order.
+  - drift: the fp32 force operator within the gate's TOL_FORCE (2e-3,
+    relative with a floor of 1) of float64, bf16's within 1e-2 (its
+    inputs are rounded to 8 bits; the TPU record has 3.9e-3), and the
+    energy within 5% of E0 at each point (as the bounded-energy test).
+  - animate: none; the card's frames are byte-equal to the CPU's render of
+    the same recorded positions (as for the frames above).
+  - entry: bit-equal to engine.step (the same call).
 """
 
 from __future__ import annotations
@@ -1734,6 +1755,157 @@ def _issue_report(ipp, issue_hz, times, times_big, probe_events):
                  100 * bound / ms))
 
 
+def _reset_counts():
+    from parallel_nbody_tpu_torch.ops import cuda_step
+    cuda_step.block_forces.launches = 0
+    cuda_step.block_forces_streamed.launches = 0
+    torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+def _read_counts(label, t0, want_k1, want_k2):
+    """The counts since ``_reset_counts``, held to what the path must
+    launch; prints the path's wall time."""
+    from parallel_nbody_tpu_torch.ops import cuda_step
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    k1 = cuda_step.block_forces.launches
+    k2 = cuda_step.block_forces_streamed.launches
+    print("%s: %.1f s, launches K1 %d K2 %d" % (label, seconds, k1, k2))
+    if (k1, k2) != (want_k1, want_k2):
+        raise AssertionError("%s: launched K1 %d and K2 %d times, expected "
+                             "%d and %d" % (label, k1, k2, want_k1, want_k2))
+    return k1, k2
+
+
+def phase_hw_validate(dev):
+    """The on-card accuracy gate (benchmarks/hw_validate) in-process at its
+    full sizes: every case within the JAX gate's tolerances of float64, the
+    programs against the fused run, the gravity flip detected.  One line
+    per case with its worst error beside its tolerance.  Returns the
+    (K1, K2) launches of the gate's kernel paths: cases A, F, sabotage and
+    the resident random cases through K1; B, B', the streamed random case,
+    C (two force passes and its run) and the three programs through K2."""
+    from parallel_nbody_tpu_torch.benchmarks import hw_validate as hv
+    from parallel_nbody_tpu_torch.ops import cuda_step
+    t0 = _reset_counts()
+    verdict = hv.run_gate(dev, log=lambda s: print("hw_validate: " + s))
+    steps = verdict["steps"]
+    specs = verdict["random_cases"]["cases"]
+    want_k1 = 3 * steps + sum(c["steps"] for c in specs
+                              if c["variant"] == "resident")
+    want_k2 = 2 * steps + sum(c["steps"] for c in specs
+                              if c["variant"] == "streamed")
+    # Case C's two force passes, its run and the three programs' runs: K2
+    # at the full N_LARGE, K1 below the threshold.
+    if verdict["n_large"] > cuda_step.STREAMED_ABOVE:
+        want_k2 += 2 + steps + 3 * steps
+    else:
+        want_k1 += 2 + steps + 3 * steps
+    launches = _read_counts("hw_validate", t0, want_k1, want_k2)
+    for line in hv.summary_lines(verdict):
+        print("hw_validate " + line)
+    print("hw_validate: N=%d band %d: %d bands; %s"
+          % (verdict["n_small"], verdict["band"], verdict["bands"],
+             "PASS" if verdict["ok"] else "FAIL"))
+    if not verdict["ok"] or verdict["bands"] != 4:
+        raise AssertionError("hw_validate: the gate failed: %s"
+                             % json.dumps(verdict["cases"]))
+    return launches
+
+
+# The drift study's depth here: 1000 steps, the energy at 0, 500 and 1000
+# (the full 5000 are run by hand, benchmarks/drift_study.py).
+DRIFT_STEPS = 1000
+# Bounds of phase_drift: the force operator as the gate's TOL_FORCE for
+# fp32 and 1e-2 for bf16 (inputs rounded to 8 bits: 3.9e-3 on the TPU),
+# and the energy within 5% of E0, as tests/test_torch_drift.py bounds it.
+DRIFT_FORCE_BF16, DRIFT_ENERGY = 1e-2, 0.05
+
+
+def phase_drift(dev):
+    """The energy-drift study (benchmarks/drift_study) at N=65536 for fp32
+    plain, fp32 compensated and bf16 through K1, DRIFT_STEPS deep.  Returns
+    K1's launches: per mode one force pass, a warm-up step, 3 timed chunks
+    and the steps."""
+    from parallel_nbody_tpu_torch.benchmarks import drift_study as ds
+    from parallel_nbody_tpu_torch.benchmarks.hw_validate import TOL_FORCE
+    sizes = ds.FULL_SIZES._replace(steps=DRIFT_STEPS)
+    t0 = _reset_counts()
+    rec = ds.run_study(dev, sizes, log=lambda s: print("drift: " + s))
+    per_mode = 2 + ds.TIMING_REPS * sizes.chunk + sizes.steps
+    k1, _ = _read_counts("drift", t0, len(ds.MODES) * per_mode, 0)
+    for mode in ds.MODES:
+        f = rec["force_operator_vs_fp64"][mode]
+        e = rec["energy"][mode]
+        drifts = [e["drift_%d" % t] for t in ds.energy_at(sizes.steps)[1:]]
+        print("drift %-11s N=%d: force vs fp64 max_rel %.6e mean_rel %.6e; "
+              "E0 %.6e, drift %s; %.6f ms/step"
+              % (mode, rec["n"], f["max_rel"], f["mean_rel"], e["E0"],
+                 " ".join("%.6e" % d for d in drifts),
+                 rec["timings"][mode] * 1e3))
+        bound = DRIFT_FORCE_BF16 if mode == "bfloat16" else TOL_FORCE
+        if not (f["max_rel"] < bound and all(d < DRIFT_ENERGY
+                                             for d in drifts)):
+            raise AssertionError("drift %s: force max_rel %.6e (bound %g), "
+                                 "drift %s" % (mode, f["max_rel"], bound,
+                                               drifts))
+    print("drift: init_quantization %s" % rec["init_quantization"])
+    return k1
+
+
+ANIMATE_N, ANIMATE_STEPS, ANIMATE_EVERY = 4096, 200, 50
+
+
+def phase_animate(dev, tmp):
+    """examples/animate on the card: N=4096 glibc, 200 steps through K1,
+    recorded every 50, four PPMs each byte-equal to the CPU's render of the
+    same recorded positions.  Returns K1's launches (one a step)."""
+    from parallel_nbody_tpu_torch.examples import animate
+    from parallel_nbody_tpu_torch.ops.render import render_frame
+    from parallel_nbody_tpu_torch.utils import ppm
+    outdir = os.path.join(tmp, "frames")
+    t0 = _reset_counts()
+    cfg, xs, ys, radius, paths = animate.record(
+        ANIMATE_N, ANIMATE_STEPS, ANIMATE_EVERY, outdir, dev)
+    k1, _ = _read_counts("animate", t0, ANIMATE_STEPS, 0)
+    if len(paths) != ANIMATE_STEPS // ANIMATE_EVERY:
+        raise AssertionError("animate wrote %d frames" % len(paths))
+    for i, path in enumerate(paths):
+        got = ppm.read_pixels(ppm.read_header(path))
+        want = render_frame(cfg, xs[i].cpu(), ys[i].cpu(), radius.cpu(),
+                            ANIMATE_N).numpy()
+        lit = int(want.any(axis=2).sum())
+        print("animate %s: %d lit pixels, byte-equal to the CPU's render: "
+              "%s" % (os.path.basename(path), lit, np.array_equal(got,
+                                                                  want)))
+        if not np.array_equal(got, want) or not lit:
+            raise AssertionError("animate %s differs from the CPU's render"
+                                 % path)
+    return k1
+
+
+def phase_entry(dev):
+    """entry()'s fn on the card: one step, bit-equal to engine.step on the
+    same state, K1 launched once."""
+    from parallel_nbody_tpu_torch.entry import N_ENTRY, entry
+    from parallel_nbody_tpu_torch.models.engine import step
+    fn, (state,) = entry()
+    if state.x.device != dev or state.n != N_ENTRY:
+        raise AssertionError("entry state on %s with %d bodies"
+                             % (state.x.device, state.n))
+    t0 = _reset_counts()
+    got = fn(state)
+    k1, _ = _read_counts("entry", t0, 1, 0)
+    want = step(_cfg("float32"), state)
+    equal = all(torch.equal(g, w) for g, w in zip(got, want))
+    print("entry: fn(state) at N=%d bit-equal to engine.step: %s"
+          % (N_ENTRY, equal))
+    if not equal:
+        raise AssertionError("entry: fn(state) differs from engine.step")
+    return k1
+
+
 def _bound(n_rows, n_cols):
     """(bound_ms, bound_by) of one unbiased force pass over n_rows x n_cols
     pairs: FLOP_PER_PAIR FP32 operations per pair at the FP32 peak, against
@@ -1801,6 +1973,14 @@ def main() -> int:
     phase_sabotage_ranks(dev)
     print("world of one: %.1f s; emulated ranks and their sabotage: %.1f s"
           % (t_ranks - t_dist, time.perf_counter() - t_ranks))
+    t_tools = time.perf_counter()
+    launches_gate_k1, launches_gate_k2 = phase_hw_validate(dev)
+    launches_drift = phase_drift(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        launches_animate = phase_animate(dev, tmp)
+    launches_entry = phase_entry(dev)
+    print("tools (hw_validate, drift, animate, entry): %.1f s"
+          % (time.perf_counter() - t_tools))
     print("chip_smoke: %.1f s" % (time.perf_counter() - t_start))
     source = "parallel_nbody_tpu_torch/csrc/%s"
     replaces = "parallel_nbody_tpu/ops/pallas_step.py:%d"
@@ -1815,6 +1995,10 @@ def main() -> int:
         "launches_resumed_dir_run": launches_resumed_dir,
         "launches_world_of_one": launches_world,
         "launches_emulated_ranks": launches_ranks,
+        "launches_hw_validate": launches_gate_k1,
+        "launches_drift": launches_drift,
+        "launches_animate": launches_animate,
+        "launches_entry": launches_entry,
         "max_abs_err_emulated_ranks": max_err_ranks,
         "max_abs_err": max_err_k1,
         "ms": times["kernel"],
@@ -1828,6 +2012,7 @@ def main() -> int:
         "replaces": replaces % 344,
         "launches": launches_k2,
         "launches_emulated_ranks": {"2 allgather": launches_ranks_k2},
+        "launches_hw_validate": launches_gate_k2,
         "max_abs_err": max_err_k2,
         "ms": times_big["K2"],
         "ms_biased": times_big["K2_biased"],

@@ -66,6 +66,20 @@ def test_engine_run_matches_fixture(n, steps, name):
     assert format_state(run(cfg, init_state(n, cfg), steps)) == _golden(name)
 
 
+@pytest.mark.slow
+@pytest.mark.parametrize("n, steps, name", [
+    (2048, 100, "seq_2048_100.out"),
+    (4096, 100, "seq_4096_100.out"),
+    (10000, 100, "seq_10000_100.out"),  # N = MAXBODIES; ~10 GB of pairs
+    (32, 100000, "REF_OUTPUT"),
+])
+def test_engine_run_matches_slow_fixture(n, steps, name):
+    """The four fixtures the fast tests leave out, byte for byte (fp64
+    trig on the CPU)."""
+    cfg = SimConfig(xdim=1024, ydim=768, force_mode="trig", dtype="float64")
+    assert format_state(run(cfg, init_state(n, cfg), steps)) == _golden(name)
+
+
 def test_cli_subprocess_matches_fixture(arena):
     env = dict(os.environ, NBODY_PLATFORM="cpu", PYTHONPATH=REPO,
                OMP_NUM_THREADS="1")

@@ -318,7 +318,9 @@ def test_port_never_imports_jax():
                  "benchmarks.bias_variants_probe", "utils.convert",
                  "parallel.mesh", "parallel.sharded_step", "parallel.grid2d",
                  "parallel.multihost", "parallel.emulate",
-                 "parallel.dryrun"):
+                 "parallel.dryrun", "benchmarks.hw_validate",
+                 "benchmarks.drift_study", "examples.animate", "entry",
+                 "utils.device"):
         assert "parallel_nbody_tpu_torch." + name in walked, name
 
 
@@ -334,7 +336,23 @@ def test_packaging_ships_the_parallel_subpackage():
     found = set(find_packages(REPO, include=include))
     assert {"parallel_nbody_tpu_torch.parallel",
             "parallel_nbody_tpu_torch.ops",
-            "parallel_nbody_tpu_torch.utils"} <= found
+            "parallel_nbody_tpu_torch.utils",
+            "parallel_nbody_tpu_torch.benchmarks",
+            "parallel_nbody_tpu_torch.examples"} <= found
+
+
+def test_console_scripts_name_both_clis():
+    """``nbody-torch`` resolves to the port's ``cli.main``, a callable,
+    and ``nbody-tpu`` still names the JAX package's."""
+    import importlib
+    import tomllib
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        scripts = tomllib.load(f)["project"]["scripts"]
+    assert scripts["nbody-tpu"] == "parallel_nbody_tpu.cli:main"
+    module, _, attr = scripts["nbody-torch"].partition(":")
+    assert (module, attr) == ("parallel_nbody_tpu_torch.cli", "main")
+    main = getattr(importlib.import_module(module), attr)
+    assert callable(main) and main is tcli.main
 
 
 def test_package_data_ships_every_kernel_source():

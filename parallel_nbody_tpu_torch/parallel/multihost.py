@@ -60,6 +60,15 @@ def _rank_device(device_type: str, local_rank: int):
     return torch.device("cuda", local_rank)
 
 
+def _import_checkpointing() -> None:
+    """Import ``torch.distributed.checkpoint`` before the group is made.
+    Imported while a group exists, its ``torch.distributed._shard`` part
+    keeps that group alive past ``destroy_process_group``; the group's gloo
+    threads then go down at interpreter exit, where they can abort the rank
+    ("terminate called without an active exception")."""
+    import torch.distributed.checkpoint  # noqa: F401
+
+
 def initialize(device_type: str, coordinator_address: str | None = None,
                num_processes: int | None = None,
                process_id: int | None = None):
@@ -80,6 +89,7 @@ def initialize(device_type: str, coordinator_address: str | None = None,
     address = coordinator_address or os.environ.get("COORDINATOR_ADDRESS")
     init = ("tcp://" + address if address and "RANK" not in os.environ
             else "env://")
+    _import_checkpointing()
     dist.init_process_group(_backend(device_type), init_method=init,
                             rank=rank, world_size=world)
     return device
@@ -124,6 +134,7 @@ def _spawned_rank(rank, fn, args, world, tmp, device_type, threads):
             out = stack.enter_context(open(os.devnull, "w"))
         stack.enter_context(contextlib.redirect_stdout(out))
         store = dist.FileStore(os.path.join(tmp, "store"), world)
+        _import_checkpointing()
         dist.init_process_group(_backend(device_type), store=store,
                                 rank=rank, world_size=world)
         try:

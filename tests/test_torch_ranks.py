@@ -11,6 +11,8 @@ messages go to stderr).  Every comparison of printed states is byte for byte (fp
 configuration).
 """
 
+import socket
+
 import pytest
 import torch
 
@@ -96,3 +98,28 @@ def test_dryrun_two_ranks():
     assert lines[-1] == "MULTIHOST_OK"
     assert lines[0].startswith("dryrun ok: 2 ranks (gloo), comm=allgather+"
                                "ring+grid2d(1x2)")
+
+
+_GROUP_AFTER_DESTROY = """
+import os
+import torch.distributed as dist
+from parallel_nbody_tpu_torch.parallel import multihost
+multihost.initialize("cpu", "localhost:%d", 1, 0)
+import torch.distributed.checkpoint
+dist.destroy_process_group()
+print(sorted(open("/proc/self/task/%%s/comm" %% t).read().strip()
+             for t in os.listdir("/proc/self/task")))
+"""
+
+
+def test_group_ends_with_destroy_after_checkpoint_import():
+    """A rank that imports torch.distributed.checkpoint after joining (as a
+    directory checkpoint does) keeps no gloo thread past
+    destroy_process_group: a group left alive is torn down at interpreter
+    exit, where it can abort the rank."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    rc, out, err = spawned(["-c", _GROUP_AFTER_DESTROY % port])
+    assert rc == 0, err[-3000:]
+    assert "gloo" not in out, out

@@ -45,7 +45,7 @@ from ..config import SimConfig
 from ..models.engine import run
 from ..ops.cuda_step import cuda_forces
 from ..state import init_state
-from ..utils.device import resolve, split_flags
+from ..utils.device import resolve, tool_argv
 from .hw_validate import device_info, oracle_forces
 
 N = 65536
@@ -201,12 +201,10 @@ def run_study(device=None, sizes: Sizes | None = None, log=print) -> dict:
 
 def main(argv=None) -> int:
     argv = sys.argv if argv is None else argv
-    try:
-        _, flags = split_flags(argv[1:], ("device", "out"))
-        device = resolve(flags.get("device"))
-    except (RuntimeError, ValueError) as e:
-        sys.stderr.write("drift_study: %s\n" % e)
+    got = tool_argv("drift_study", argv)
+    if got is None:
         return 1
+    _, flags, device = got
     record = run_study(device, log=lambda s: print(s, flush=True))
     record["when"] = time.strftime("%Y-%m-%d %H:%M:%S")
     if flags.get("out"):

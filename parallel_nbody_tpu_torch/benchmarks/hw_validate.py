@@ -73,7 +73,7 @@ from ..ops.cuda_step import (band_width, block_forces_streamed, cuda_forces,
 from ..ops.forces import forces_on_block
 from ..ops.integrate import compute_positions, compute_velocities
 from ..state import State, init_state
-from ..utils.device import resolve, split_flags
+from ..utils.device import resolve, tool_argv
 from ..utils.output import _host64
 
 N_SMALL = 4096
@@ -418,12 +418,10 @@ def summary_lines(verdict: dict):
 
 def main(argv=None) -> int:
     argv = sys.argv if argv is None else argv
-    try:
-        _, flags = split_flags(argv[1:], ("device", "out"))
-        device = resolve(flags.get("device"))
-    except (RuntimeError, ValueError) as e:
-        sys.stderr.write("hw_validate: %s\n" % e)
+    got = tool_argv("hw_validate", argv)
+    if got is None:
         return 1
+    _, flags, device = got
     verdict = run_gate(device, log=lambda s: print(s, flush=True))
     verdict["when"] = time.strftime("%Y-%m-%d %H:%M:%S")
     for line in summary_lines(verdict):

@@ -19,9 +19,9 @@
 // Self-pairs get bias 0 and contribute 0; eps keeps rsqrt finite there.
 //
 // Options (pairs.cuh): fp32, fp64, and bf16 storage with fp32 compute;
-// accum "plain" (each pair term added to the row sum) or "compensated"
-// (each 128-wide j-tile's partial Kahan-folded into the row sum, as the
-// Pallas kernel folds each column tile's partial).
+// accum "plain" or "compensated": each 128-wide j-tile is summed into a
+// partial, and the partials are added to the row sum in order, plainly or
+// Kahan-folded, as the Pallas kernel folds each column tile's partial.
 //
 // Bound: instruction issue.  Each SM's four schedulers issue one warp
 // instruction per clock, and the fp32 pair loop is nearly all FP32-pipe
@@ -31,14 +31,17 @@
 // 1 FMNMX — one MUFU.RSQ, one LDS.128 (a 16-byte load of one of the four
 // staged arrays serves 4 pairs), and 1.0 of address and loop overhead: per
 // 8 pairs four ULEA, a UIADD3, a UISETP, a PLOP3 and the branch); constant
-// bias 15.875 (one FADD more, 0.875 overhead); per-pair bias 18.0 (an IADD3
-// and an I2FP more, the bias folded into an FFMA), on one or two tiles of a
-// row's N/128.  That issue time is about twice the FP32-operation bound,
-// since the 67 TFLOP/s peak counts an FFMA as two operations and the loop's
-// FADD/FMUL/FMNMX as one each.  Memory is far below both: each block of
-// kBlock threads reads every column body (16 bytes) once from device
-// memory, through L2, and serves it to its kBlock rows from shared memory.
-// The Kahan folds add 3 adds per 128 pairs per component.
+// bias 16.0 (one FADD more, the same overhead; a build that kept its loop
+// counter in a vector register beside uniform addresses counted 15.875);
+// per-pair bias 18.0 (an IADD3 and an I2FP more, the bias folded into an
+// FFMA), on one or two tiles of a row's N/128.  That issue time is about
+// twice the FP32-operation bound, since the 67 TFLOP/s peak counts an FFMA
+// as two operations and the loop's FADD/FMUL/FMNMX as one each.  Memory
+// is far below both: each block of kBlock threads reads every column body
+// (16 bytes) once from device memory, through L2, and serves it to its
+// kBlock rows from shared memory.
+// Folding a tile's partial into the row sum adds one FADD per 128 pairs
+// per component (four under compensated).
 //
 // What does not serve this loop.  Tensor cores: the pair math has no
 // product that keeps fp32 accuracy (dsqr as |p|^2 - 2 p.q + |q|^2 cancels

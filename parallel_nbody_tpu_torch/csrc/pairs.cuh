@@ -34,13 +34,19 @@
 // The unbiased variant is its own instantiation with no add; the device-side
 // flag picks between them once per tile, uniformly across the grid.
 //
-// Accumulation.  With kComp = false each pair term is added straight into
-// the row accumulator.  With kComp = true each kBlock-wide j-tile is summed
-// into a fresh partial, and the partial is Kahan-folded into the row sum
-// (pallas_step.py::_kahan_add, at :191-197); the compensation term is
-// dropped when the sweep ends (_acc_finish).  -fmad=true contracts only
-// a*b+c, and the Kahan steps hold no product, so the compensation survives
-// the compiler; there is no --use_fast_math.
+// Accumulation.  Each kBlock-wide j-tile is summed term by term into a
+// fresh partial, and the partial is added to the row sum, as the Pallas
+// kernel adds each column tile's partial (pallas_step.py:180-193) and as the
+// plain versions do (ops/cuda_step._tile_partials, _fold): a partial takes
+// kBlock terms and the row sum N / kBlock partials, where one running sum
+// over the row would take N terms.  With kComp = false the partial is added
+// plainly; with kComp = true it is Kahan-folded into the row sum
+// (pallas_step.py::_kahan_add, at :191-197), and the compensation term is
+// dropped when the sweep ends (_acc_finish).  The pair loop is the same
+// either way; the fold costs one FADD per component per tile (four under
+// kComp), not per pair.  -fmad=true contracts only a*b+c, and the Kahan
+// steps hold no product, so the compensation survives the compiler; there
+// is no --use_fast_math.
 
 #pragma once
 
@@ -190,13 +196,14 @@ __device__ __forceinline__ void sweep_columns(
     }
     __syncthreads();
     const long long gj0 = col_g0 + j0;
+    T px = T(0), py = T(0);
+    sweep_segment<T>(sx, sy, sm, sr, xi, yi, ri, biased, gi0, gj0, px, py);
     if (kComp) {
-      T px = T(0), py = T(0);
-      sweep_segment<T>(sx, sy, sm, sr, xi, yi, ri, biased, gi0, gj0, px, py);
       kahan_add(ax, cx, px);
       kahan_add(ay, cy, py);
     } else {
-      sweep_segment<T>(sx, sy, sm, sr, xi, yi, ri, biased, gi0, gj0, ax, ay);
+      ax += px;
+      ay += py;
     }
     __syncthreads();
   }

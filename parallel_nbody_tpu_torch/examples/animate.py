@@ -27,7 +27,7 @@ from ..models.engine import run_trajectory
 from ..ops.render import render_frame
 from ..state import init_state
 from ..utils import ppm
-from ..utils.device import resolve, split_flags
+from ..utils.device import resolve, tool_argv
 
 
 def record(n: int, steps: int, every: int, outdir: str, device=None):
@@ -52,12 +52,10 @@ def record(n: int, steps: int, every: int, outdir: str, device=None):
 
 def main(argv=None) -> int:
     argv = sys.argv if argv is None else argv
-    try:
-        args, flags = split_flags(argv[1:], ("device",))
-        device = resolve(flags.get("device"))
-    except (RuntimeError, ValueError) as e:
-        sys.stderr.write("animate: %s\n" % e)
+    got = tool_argv("animate", argv, ("device",))
+    if got is None:
         return 1
+    args, _, device = got
     n = int(args[0]) if len(args) > 0 else 256
     steps = int(args[1]) if len(args) > 1 else 2000
     every = int(args[2]) if len(args) > 2 else 100

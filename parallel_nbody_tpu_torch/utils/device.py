@@ -10,6 +10,8 @@ CPU is used only when asked for: ``--device=cpu`` on a command line,
 
 from __future__ import annotations
 
+import sys
+
 import torch
 
 DEVICES = ("cpu", "cuda")
@@ -49,3 +51,16 @@ def split_flags(argv, names):
         else:
             args.append(a)
     return args, flags
+
+
+def tool_argv(tool: str, argv, names=("device", "out")):
+    """(positional arguments, flags, device) of a tool's argv (program name
+    first; ``--name=value`` for each of ``names``), or None after writing
+    ``tool: why`` to stderr: an unknown flag, an unknown device, or no card
+    when the CPU was not asked for."""
+    try:
+        args, flags = split_flags(argv[1:], names)
+        return args, flags, resolve(flags.get("device"))
+    except (RuntimeError, ValueError) as e:
+        sys.stderr.write("%s: %s\n" % (tool, e))
+        return None

@@ -6,8 +6,9 @@ one).  This file imports no JAX, so it also runs where JAX is absent:
 
 Tolerances: each kernel (K1 ``block_forces``, K2 ``block_forces_streamed``)
 against its plain version on the same card is held to 1e-5 * max|F| in fp32
-(the kernels sum each row sequentially; at these sizes the difference is
-below 1e-6 * max|F|) and 1e-12 * max|F| in fp64.  The magnitude-spread case
+(both sum each 128-column tile into a partial and fold the partials in
+order; they differ only inside a tile, below 3e-7 * max|F| on the H100 up
+to N=262144) and 1e-12 * max|F| in fp64.  The magnitude-spread case
 keeps the bounds of tests/test_accum.py; bf16 launches are bit-equal to the
 fp32 launch on the upcast inputs rounded once.  The probe kernels (P1, P2)
 at N=384, 1152 and 4096 against their plain versions in the kernels' order
@@ -28,7 +29,7 @@ from parallel_nbody_tpu_torch.benchmarks import roofline_probe as p1
 from parallel_nbody_tpu_torch.config import SimConfig
 from parallel_nbody_tpu_torch.models.engine import run
 from parallel_nbody_tpu_torch.ops import cuda_step
-from parallel_nbody_tpu_torch.state import init_state
+from parallel_nbody_tpu_torch.state import init_state, random_state
 from parallel_nbody_tpu_torch.utils import ppm
 from torch_cases import (BLOCK_CASES, KICK, KICK_PLACEMENTS, SEGMENT_CASES,
                          blocks, glibc_like, kick_case, probe_inputs,
@@ -755,3 +756,51 @@ def test_world_of_one_on_nccl_is_engine_run(program, dev, nccl_world_of_one):
     assert cuda_step.block_forces.launches == 5
     for f, g, w in zip(got._fields, got, want):
         assert torch.equal(g, w), f
+
+
+# ---------------------------------------------------------------------------
+# the speed tools on the card
+# ---------------------------------------------------------------------------
+
+def test_bench_headline_line_on_card(dev):
+    """The benchmark's line on the card at a small size: the root
+    bench.py's keys, a fingerprint of this card, K1 once a step."""
+    from parallel_nbody_tpu_torch.benchmarks import bench
+    cuda_step.block_forces.launches = 0
+    line = bench.headline(dev, n=4096, steps=5, reps=2)
+    assert cuda_step.block_forces.launches == 3 * 5
+    assert set(line) == {"metric", "value", "unit", "vs_baseline",
+                         "fingerprint"}
+    assert line["value"] > 0 and "N=4096" in line["metric"]
+    fp = line["fingerprint"]
+    assert fp["device"] == "cuda"
+    assert fp["name"] == torch.cuda.get_device_name(dev)
+    assert fp["cuda"] == torch.version.cuda
+
+
+def test_row_block_sabotage_is_bit_equal_on_card(dev):
+    """The perf gate's sabotage computes engine.run's state bit for bit,
+    in N/R K1 launches a step."""
+    from parallel_nbody_tpu_torch.benchmarks import bench
+    cfg = bench.bench_cfg()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    st = random_state(16384, cfg, gen, device=dev)
+    cuda_step.block_forces.launches = 0
+    got = bench.runner(cfg, 3, 4096)(st)
+    assert cuda_step.block_forces.launches == 3 * 4
+    want = run(cfg, st, 3)
+    for f, g, w in zip(got._fields, got, want):
+        assert torch.equal(g, w), f
+
+
+def test_k2_hold_on_card(dev):
+    """The scaling grid's hold at the smallest N that runs K2: K2's first
+    pass against its plain version on four misaligned row blocks."""
+    from parallel_nbody_tpu_torch.benchmarks import run_benchmarks as rb
+    cfg = SimConfig(force_mode="fast", dtype="float32", kernel="cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    st = random_state(262144, cfg, gen, device=dev)
+    cuda_step.block_forces_streamed.launches = 0
+    got = rb.hold_first_pass(cfg, st)
+    assert cuda_step.block_forces_streamed.launches == 1
+    assert got["ok"], got

@@ -106,6 +106,15 @@ def fingerprint(device) -> dict:
     return fp
 
 
+def device_keys(device) -> dict:
+    """The device keys of the JAX package's accuracy records (``backend``,
+    ``device``), read from the ``fingerprint`` that they carry beside."""
+    fp = fingerprint(device)
+    return {"backend": device.type,
+            "device": fp["name"] if device.type == "cuda" else "cpu",
+            "fingerprint": fp}
+
+
 def record_path(flags: dict, device, name: str):
     """Where a tool writes its record: ``--out=PATH``, else beside the tool
     (``benchmarks/<name>``) for a run on the card; a CPU run writes only

@@ -46,7 +46,8 @@ from ..models.engine import run
 from ..ops.cuda_step import cuda_forces
 from ..state import init_state
 from ..utils.device import resolve, tool_argv
-from .hw_validate import device_info, oracle_forces
+from ._tools import device_keys
+from .hw_validate import oracle_forces
 
 N = 65536
 STEPS = 5000
@@ -196,7 +197,7 @@ def run_study(device=None, sizes: Sizes | None = None, log=print) -> dict:
     return {"force_operator_vs_fp64": force_err, "energy": drift,
             "init_quantization": init_quant,
             "n": n, "steps": steps, "chunk": chunk, "oracle_rows": rows,
-            "timings": timings, "skipped": False, **device_info(device)}
+            "timings": timings, "skipped": False, **device_keys(device)}
 
 
 def main(argv=None) -> int:

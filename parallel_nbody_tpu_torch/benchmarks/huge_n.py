@@ -3,11 +3,12 @@ single-chip scale), and a frame of the result.
 
 The counterpart of the JAX package's ``benchmarks/huge_n.py``: the
 ``random_state`` of N bodies (a ``torch.Generator`` seeded with 0) in fp32;
-``any_coincident`` once (positions are fixed for the force pass); the force
-pass through K2 (``block_forces_streamed``, band 65536) as ONE launch over
-all N rows and N columns (at N=10M: 153 bands, a (153, 2, N) fp32
-workspace of 12.2 GB); velocity and position integration; then
-``ops/render.render_frame`` of the new positions, written as a P6 PPM.
+one ``engine.step``, which above 131072 bodies runs ``any_coincident`` once
+and the force pass through K2 (``block_forces_streamed``, band 65536) as
+ONE launch over all N rows and N columns (at N=10M: 153 bands, a
+(153, 2, N) fp32 workspace of 12.2 GB), then velocity and position
+integration; then ``ops/render.render_frame`` of the new positions,
+written as a P6 PPM.
 The JAX tool cuts the force pass into host row chunks and renders in
 hosted bands because its TPU transport ends any dispatch after about 60 s;
 the card has no such limit, so neither cut is made here.
@@ -35,10 +36,9 @@ import tempfile
 import torch
 
 from ..config import SimConfig
-from ..ops.cuda_step import any_coincident, block_forces_streamed
-from ..ops.integrate import compute_positions, compute_velocities
+from ..models import engine
 from ..ops.render import render_frame
-from ..state import State, random_state
+from ..state import random_state
 from ..utils import ppm
 from ..utils.device import tool_argv
 from ._tools import fingerprint, record_path, sync, wall, write_record
@@ -52,26 +52,15 @@ def huge_cfg() -> SimConfig:
     return SimConfig(force_mode="fast", dtype="float32", kernel="cuda")
 
 
-def one_step(cfg: SimConfig, st: State) -> State:
-    """``engine.step`` with its force pass always through K2 in one launch
-    (``engine.step`` itself takes K1 at N <= 131072)."""
-    biased = any_coincident(st.x, st.y, st.mass)
-    xf, yf = block_forces_streamed(cfg, st.x, st.y, st.mass, st.radius,
-                                   st.x, st.y, st.mass, st.radius,
-                                   biased=biased)
-    xv, yv = compute_velocities(cfg, st.xv, st.yv, xf, yf, st.mass)
-    x, y, xv, yv = compute_positions(cfg, st.x, st.y, xv, yv, mass=st.mass)
-    return State(x, y, xv, yv, xf, yf, st.mass, st.radius)
-
-
 def huge_step(device, n: int, out_ppm: str, log=print):
-    """(record, stepped state)."""
+    """(record, stepped state) of one ``engine.step`` from the seeded
+    ``random_state`` of ``n`` bodies."""
     cfg = huge_cfg()
     gen = torch.Generator(device=device).manual_seed(SEED)
     t_init, st = wall(lambda: random_state(n, cfg, gen, device=device),
                       device)
     log("N=%d: state made in %.3f s" % (n, t_init))
-    t_step, out = wall(lambda: one_step(cfg, st), device)
+    t_step, out = wall(lambda: engine.step(cfg, st), device)
     if not all(bool(torch.isfinite(t).all()) for t in out):
         raise AssertionError("non-finite state after one step at N=%d" % n)
     log("N=%d: one step in %.3f s" % (n, t_step))

@@ -75,6 +75,7 @@ from ..ops.integrate import compute_positions, compute_velocities
 from ..state import State, init_state
 from ..utils.device import resolve, tool_argv
 from ..utils.output import _host64
+from ._tools import device_keys
 
 N_SMALL = 4096
 N_LARGE = 262144
@@ -363,20 +364,7 @@ def run_gate(device=None, sizes: Sizes | None = None, log=print) -> dict:
                            "program_rel": TOL_PROGRAM},
             "n_small": n, "n_large": nl, "steps": steps,
             "rows_checked": rows, "band": band, "bands": bands,
-            "parallel_programs": programs, **device_info(device)}
-
-
-def device_info(device) -> dict:
-    """The device a record was made on: torch's name for it and, on the
-    card, nvidia-smi's name and power limit."""
-    from ._probe import device_line
-    info = {"backend": device.type, "torch": torch.__version__}
-    if device.type == "cuda":
-        info["device"] = torch.cuda.get_device_name(device)
-        info["nvidia_smi"] = device_line()
-    else:
-        info["device"] = "cpu"
-    return info
+            "parallel_programs": programs, **device_keys(device)}
 
 
 def summary_lines(verdict: dict):

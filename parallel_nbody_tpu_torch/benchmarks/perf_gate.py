@@ -44,8 +44,8 @@ from ._tools import REPO
 from .bench import ROWS_ENV
 
 # About 8% under the port's headline on one H100 80GB HBM3 at 700 W:
-# 7.207e11-7.255e11 pairs/s in three runs of the benchmark (PERF.md §6).
-FLOOR_PAIRS_PER_S = 6.65e11
+# 7.597e11-7.607e11 pairs/s in three runs of the benchmark (PERF.md §6).
+FLOOR_PAIRS_PER_S = 7.0e11
 HEADLINE_N = 65536
 SABOTAGE_ROWS = 8192
 

@@ -168,7 +168,10 @@ __device__ __forceinline__ void sweep_segment(
 // [j_begin, j_end) of the column block, whose global ids start at col_g0.
 // Every thread of the block calls it with the same range, since the tiles
 // are staged cooperatively.  Columns past j_end are staged as zero-mass
-// bodies at the origin, whose terms are exactly 0.
+// bodies at the origin, whose terms are exactly 0.  Each thread loads its
+// column of the next tile into registers while the block sweeps this one,
+// and stores it to shared memory after the barrier, so the sweep does not
+// wait on device memory at each tile.
 template <typename S, bool kComp>
 __device__ __forceinline__ void sweep_columns(
     const S* __restrict__ xj, const S* __restrict__ yj,
@@ -181,20 +184,29 @@ __device__ __forceinline__ void sweep_columns(
     typename ComputeOf<S>::type& ay) {
   using T = typename ComputeOf<S>::type;
   T cx = T(0), cy = T(0);
+  S nx{}, ny{}, nm{}, nr{};
+  int64_t j = j_begin + threadIdx.x;
+  bool in = j < j_end;
+  if (in) {
+    nx = xj[j];
+    ny = yj[j];
+    nm = mj[j];
+    nr = rj[j];
+  }
   for (int64_t j0 = j_begin; j0 < j_end; j0 += kBlock) {
-    const int64_t j = j0 + threadIdx.x;
-    if (j < j_end) {
-      sx[threadIdx.x] = to_compute(xj[j]);
-      sy[threadIdx.x] = to_compute(yj[j]);
-      sm[threadIdx.x] = to_compute(mj[j]);
-      sr[threadIdx.x] = to_compute(rj[j]);
-    } else {
-      sx[threadIdx.x] = T(0);
-      sy[threadIdx.x] = T(0);
-      sm[threadIdx.x] = T(0);
-      sr[threadIdx.x] = T(0);
-    }
+    sx[threadIdx.x] = in ? to_compute(nx) : T(0);
+    sy[threadIdx.x] = in ? to_compute(ny) : T(0);
+    sm[threadIdx.x] = in ? to_compute(nm) : T(0);
+    sr[threadIdx.x] = in ? to_compute(nr) : T(0);
     __syncthreads();
+    j = j0 + kBlock + threadIdx.x;
+    in = j < j_end;
+    if (in) {
+      nx = xj[j];
+      ny = yj[j];
+      nm = mj[j];
+      nr = rj[j];
+    }
     const long long gj0 = col_g0 + j0;
     T px = T(0), py = T(0);
     sweep_segment<T>(sx, sy, sm, sr, xi, yi, ri, biased, gi0, gj0, px, py);

@@ -363,17 +363,19 @@ def test_no_default_record_from_a_cpu_run(monkeypatch, tmp_path):
 # ---------------------------------------------------------------------------
 
 def test_huge_n_step_matches_jax_engine_step(tmp_path):
-    """N=4096 in fp32 on the CPU: huge_n's step (K2's plain version in one
-    call, then integration) against JAX ``engine.step`` with the Pallas
-    kernel in interpret mode, on the same state carried across as numpy.
-    The two sum each row in other tiles (128 columns against Pallas's 1024)
-    and agree to ~1e-7 of max|F| (tests/test_torch_ops.py): forces within
-    1e-5 of their max, positions and velocities within rtol 1e-6 (the step
+    """N=4096 in fp32 on the CPU: huge_n's step (``huge_step``: the
+    seeded ``random_state`` and one ``engine.step``, K1's plain version at
+    this size) against JAX ``engine.step`` with the Pallas kernel in
+    interpret mode, on the same state carried across as numpy.  The two
+    sum each row in other tiles (128 columns against Pallas's 1024) and
+    agree to ~1e-7 of max|F| (tests/test_torch_ops.py): forces within 1e-5
+    of their max, positions and velocities within rtol 1e-6 (the step
     moves a body by ~dt * v, far below that)."""
     n = 4096
     cfg = huge_n.huge_cfg()
-    st = random_state(n, cfg, torch.Generator().manual_seed(0))
-    got = huge_n.one_step(cfg, st)
+    st = random_state(n, cfg, torch.Generator().manual_seed(huge_n.SEED))
+    _, got = huge_n.huge_step(torch.device("cpu"), n,
+                              str(tmp_path / "frame.ppm"), log=lambda s: None)
     jcfg = JaxConfig(force_mode="fast", dtype="float32", kernel="pallas",
                      pallas_interpret=True)
     want = jengine.step(jcfg, JaxState(**{

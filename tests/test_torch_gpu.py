@@ -5,10 +5,11 @@ one).  This file imports no JAX, so it also runs where JAX is absent:
         tests/test_torch_gpu.py
 
 Tolerances: each kernel (K1 ``block_forces``, K2 ``block_forces_streamed``)
-against its plain version on the same card is held to 1e-5 * max|F| in fp32
-(both sum each 128-column tile into a partial and fold the partials in
-order; they differ only inside a tile, below 3e-7 * max|F| on the H100 up
-to N=262144) and 1e-12 * max|F| in fp64.  The magnitude-spread case
+against its plain version on the same card is held to 2e-6 * max|F| in fp32,
+chip_smoke.TOL (both sum each 128-column tile into a partial and fold the
+partials in order; they differ only inside a tile, below 3e-7 * max|F| on
+the H100 up to N=2097152, where one running sum over a row of 65536 columns
+reached ~4.9e-6) and 1e-12 * max|F| in fp64.  The magnitude-spread case
 keeps the bounds of tests/test_accum.py; bf16 launches are bit-equal to the
 fp32 launch on the upcast inputs rounded once.  The probe kernels (P1, P2)
 at N=384, 1152 and 4096 against their plain versions in the kernels' order
@@ -35,7 +36,7 @@ from torch_cases import (BLOCK_CASES, KICK, KICK_PLACEMENTS, SEGMENT_CASES,
                          blocks, glibc_like, kick_case, probe_inputs,
                          segment_blocks)
 
-TOL = {"float32": 1e-5, "float64": 1e-12}
+TOL = {"float32": 2e-6, "float64": 1e-12}
 
 pytestmark = pytest.mark.gpu
 

@@ -38,6 +38,20 @@ no step and records step 60); and at N=4096 ``--check-nans`` (clean, and a
 planted NaN) and ``--trace`` (a trace with device time, a 0.00% collective
 share).  The earlier phases run at the depth they had.
 
+K1 in fp64 against the reference binary's own bytes (phase_reference_replay,
+after them): the 203 distinct outputs of the reference binary that the JAX
+repo's fuzz sweeps cached in tests_out/fuzz*/ (N 2-254, 38010 steps), the
+golden fixtures of at most 1000 steps (8; REF_OUTPUT's 100000 are left out)
+and the 45 two-leg resume records of tests_out/fuzz_resume*, each through
+the CLI in-process with ``--pallas --dtype=float64`` (K1's fp64
+instantiation with the any_coincident dispatch) on the card, a .npz
+checkpoint at a resume's split: stdout byte-equal to the oracle, K1
+launched once a step and once for each run's warm-up (48654 launches).  One
+run is known to differ and is pinned, not passed: K1's fast formula prints
+seq_10000_100.out's line 8345 one force digit off the reference
+(REPLAY_KNOWN_MISS); the JAX package's Pallas kernel does the same, and the
+dense trig path prints that fixture's bytes (tests/test_torch_gpu.py).
+
 The distributed programs (parallel_nbody_tpu_torch/parallel/):
   - A. World size 1 on NCCL (a process group of this process alone): the
     all-gather and ring programs and the 1x1 grid, N=65536 fp32 through K1
@@ -153,6 +167,9 @@ Tolerances (each comparison uses the plain version's max |F| as the scale):
     pass at the same bound: the all-gather ranks sum each row as the single
     pass does (bit-equal), the ring and the grid fold the column blocks'
     partials in another order (measured up to 4.6e-7 of max|F| at P=4).
+  - reference replay: none; stdout byte-equal to the reference binary's,
+    but for the one pinned line of REPLAY_KNOWN_MISS, which must differ
+    exactly as recorded or not at all.
   - drift: the fp32 force operator within the gate's TOL_FORCE (2e-3,
     relative with a floor of 1) of float64, bf16's within 1e-2 (its
     inputs are rounded to 8 bits; the TPU record has 3.9e-3), and the
@@ -166,6 +183,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import glob
 import io
 import json
 import os
@@ -912,7 +930,6 @@ def phase_diagnostics(tmp, arena):
     and the step when one is; the trace directory holds one trace with
     device kernels of non-zero time, K1's among them, and the ``Trace:``
     line reports a 0.00% collective share."""
-    import glob
     import gzip
     base = [str(DIAG_N), "0", arena]
     flags = ["--pallas"]
@@ -967,6 +984,137 @@ def phase_diagnostics(tmp, arena):
                                 device_us / 1e3, k1_us / 1e3))
     if not device_us > 0 or not k1_us > 0:
         raise AssertionError("--trace: the trace holds no device time")
+
+
+# phase_reference_replay: the reference binary's committed outputs.  The JAX
+# repo's fuzz sweeps cached every output they diffed against as
+# tests_out/fuzz*/seq_<N>_<STEPS>.out (203 distinct (N, steps), N 2-254);
+# the golden fixtures of at most 1000 steps (REF_OUTPUT's 100000 steps are
+# left out: ~50 s of a host-bound step on their own); and the 45 two-leg
+# resume records of tests_out/fuzz_resume*, each leg diffed against the
+# uninterrupted output at its own step count.
+REPLAY_ORACLES = 203
+REPLAY_RESUMES = 45
+REPLAY_FIXTURES = (("seq_2_1000.out", 2, 1000), ("seq_64_500.out", 64, 500),
+                   ("seq_256_300.out", 256, 300),
+                   ("seq_1000_100.out", 1000, 100),
+                   ("seq_2048_100.out", 2048, 100),
+                   ("seq_4096_100.out", 4096, 100),
+                   ("seq_10000_100.out", 10000, 100),
+                   ("128_MY_REF_OUTPUT", 128, 1000))
+REPLAY_FLAGS = ["--pallas", "--dtype=float64"]
+# The one run where K1's fast formula misses the reference's bytes: body
+# 8344's y-force at step 100, whose exact value lies 4 ulps under the
+# rounding boundary of its third decimal (bin/torch/boundary_digits.py).
+# The fast formula rounds it down in the TPU kernel's tile order, as K1 and
+# its plain version sum (the Pallas kernel too), and its column-order sum
+# misses another line; the reference's trig arithmetic rounds it up.  It is
+# an open question (PERF.md), pinned here: that run must print exactly this
+# line against exactly that one, or the oracle's bytes.
+REPLAY_KNOWN_MISS = {
+    "tests/fixtures/seq_10000_100.out": (
+        8345,
+        "   597.001    171.002 6725900.304 29213247.339      2.922      3.538",
+        "   597.001    171.002 6725900.304 29213247.340      2.922      3.538"),
+}
+
+
+def _replay_sets(root):
+    """The committed oracles {(n, steps): path} and the resume records
+    [(n, split, total, leg-1 oracle, leg-2 oracle)] under root/tests_out."""
+    oracles, resumes = {}, []
+    for d in sorted(glob.glob(os.path.join(root, "tests_out", "fuzz*"))):
+        for f in sorted(os.listdir(d)):
+            m = re.fullmatch(r"seq_(\d+)_(\d+)\.out", f)
+            if m:
+                oracles.setdefault((int(m[1]), int(m[2])),
+                                   os.path.join(d, f))
+            m = re.fullmatch(r"resume_(\d+)_(\d+)of(\d+)_.*\.out", f)
+            if m and not f.endswith(".leg1.out"):
+                n, split, total = map(int, m.groups())
+                resumes.append((n, split, total) + tuple(
+                    os.path.join(d, "seq_%d_%d.out" % (n, k))
+                    for k in (split, total)))
+    return oracles, resumes
+
+
+def phase_reference_replay(dev, tmp):
+    """K1 in fp64 against the reference binary's own bytes: every committed
+    oracle and fixture of _replay_sets / REPLAY_FIXTURES through the CLI
+    in-process, ``N 0 arena STEPS --pallas --dtype=float64`` on the card
+    (K1's fp64 instantiation; the coincidence flag read on the device),
+    stdout byte-equal to the oracle but for REPLAY_KNOWN_MISS; then every
+    resume record single-rank on the card, a .npz checkpoint at the split
+    and a resume to the total, both legs byte-equal.  K1 launches once for
+    the warm-up step and once a step of each run.  Returns (K1 launches,
+    runs, seconds, the known misses that showed)."""
+    from parallel_nbody_tpu_torch.utils import ppm
+    root = os.path.dirname(os.path.abspath(__file__))
+    oracles, resumes = _replay_sets(root)
+    if len(oracles) != REPLAY_ORACLES or len(resumes) != REPLAY_RESUMES:
+        raise AssertionError("reference replay: %d oracles and %d resume "
+                             "records, expected %d and %d"
+                             % (len(oracles), len(resumes), REPLAY_ORACLES,
+                                REPLAY_RESUMES))
+    plain = [(n, steps, path) for (n, steps), path in sorted(oracles.items())]
+    plain += [(n, steps, os.path.join(root, "tests", "fixtures", name))
+              for name, n, steps in REPLAY_FIXTURES]
+    arena = os.path.join(tmp, "replay.ppm")
+    ppm.create(arena, 1024, 768)
+    ck = os.path.join(tmp, "replay.npz")
+    mismatches, known, runs, launches = [], [], 0, 0
+
+    def run(n, steps, path, extra=()):
+        nonlocal runs
+        out, _ = _cli([str(n), "0", arena, str(steps)] + REPLAY_FLAGS
+                      + list(extra), "cuda")
+        runs += 1
+        with open(path) as f:
+            want = f.read()
+        if out != want:
+            got_l, want_l = out.splitlines(), want.splitlines()
+            diff = [(i + 1, a, b) for i, (a, b) in enumerate(zip(got_l,
+                                                                  want_l))
+                    if a != b]
+            rel = os.path.relpath(path, root)
+            if (not extra and len(got_l) == len(want_l)
+                    and diff == [REPLAY_KNOWN_MISS.get(rel)]):
+                known.append(rel)
+                return
+            line = next(i for i, (a, b) in enumerate(zip(
+                got_l + [""], want_l + [""])) if a != b)
+            mismatches.append("N=%d steps=%d %s(%s) line %d: %r, want %r"
+                              % (n, steps, "".join(e + " " for e in extra),
+                                 rel, line + 1, got_l[line:line + 1],
+                                 want_l[line:line + 1]))
+
+    t0 = _reset_counts()
+    for n, steps, path in plain:
+        run(n, steps, path)
+        launches += 1 + steps
+    for n, split, total, leg1, leg2 in resumes:
+        if os.path.exists(ck):
+            os.remove(ck)
+        run(n, split, leg1, ["--checkpoint=" + ck])
+        run(n, total, leg2, ["--resume=" + ck])
+        launches += 2 + total
+    seconds = time.perf_counter() - t0
+    print("reference replay: %d runs (%d oracles, %d fixtures, %d resumes "
+          "x 2 legs), %d mismatches, %d known (pinned) misses, %.1f s"
+          % (runs, len(oracles), len(REPLAY_FIXTURES), len(resumes),
+             len(mismatches), len(known), seconds))
+    for rel in known:
+        line, got, want = REPLAY_KNOWN_MISS[rel]
+        print("reference replay KNOWN MISS (open question): %s line %d: %r, "
+              "want %r" % (rel, line, got, want))
+    for line in mismatches:
+        print("reference replay MISMATCH: " + line)
+    k1, _ = _read_counts("reference replay", t0, launches, 0)
+    if mismatches:
+        raise AssertionError("reference replay: %d of %d runs differ from "
+                             "the reference's bytes"
+                             % (len(mismatches), runs))
+    return k1, runs, seconds, known
 
 
 def _spawn_cpu(args, timeout=CPU_RANKS_TIMEOUT):
@@ -2112,6 +2260,7 @@ def main() -> int:
         launches_resumed, _, _ = phase_checkpoint(tmp, arena, dev)
         launches_resumed_dir, _, _ = phase_dir_checkpoint(tmp, arena, dev)
         phase_diagnostics(tmp, arena)
+        launches_replay, _, _, known = phase_reference_replay(dev, tmp)
     phase_state_streamed(dev)
     times = phase_timing(dev)
     times_big = phase_timing_streamed(dev)
@@ -2164,6 +2313,8 @@ def main() -> int:
         "launches_bench": launches_bench,
         "launches_scaling": launches_scaling[0],
         "launches_k2_probes": launches_probes[0],
+        "launches_reference_replay": launches_replay,
+        "reference_replay_known_misses": known,
         "max_abs_err_emulated_ranks": max_err_ranks,
         "max_abs_err": max_err_k1,
         "ms": times["kernel"],

@@ -21,7 +21,11 @@ Tolerances and why:
     Pallas's own geometry only the order differs: 2e-6 and 1e-14.
   - the kick of one coincident pair in each bias segment: rtol 1e-6 (the
     kick is m_j / forced to a few ulps of the rsqrt).
+  - --pallas in fp64 through the CLI: none; stdout byte-equal to the
+    reference binary's committed outputs.
 """
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -33,6 +37,7 @@ from parallel_nbody_tpu.config import SimConfig as JaxConfig
 from parallel_nbody_tpu.ops import forces as jforces
 from parallel_nbody_tpu.ops import integrate as jintegrate
 from parallel_nbody_tpu.ops import pallas_step
+from parallel_nbody_tpu_torch import cli
 from parallel_nbody_tpu_torch.config import SimConfig
 from parallel_nbody_tpu_torch.ops import _build, cuda_step
 from parallel_nbody_tpu_torch.ops import forces as tforces
@@ -268,6 +273,38 @@ def test_block_forces_reference_matches_pallas(case, dtype, biased):
         assert np.isfinite(_np(g)).all()
         np.testing.assert_allclose(_np(g), np.asarray(w), rtol=0,
                                    atol=rel * scale)
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.parametrize("n, steps, oracle", [
+    (2, 1000, "tests/fixtures/seq_2_1000.out"),
+    (64, 500, "tests/fixtures/seq_64_500.out"),
+    (116, 302, "tests_out/fuzz/seq_116_302.out"),
+])
+def test_pallas_fp64_prints_reference_bytes(n, steps, oracle, tmp_path,
+                                            capsys, monkeypatch):
+    """--pallas in fp64 on the CPU: K1's plain version (the TPU kernel's
+    fast formula, its tile order and the coincident dispatch) once a step,
+    and the reference binary's bytes (a fixture, and one of the fuzz
+    oracles that the card's replay also runs)."""
+    from parallel_nbody_tpu_torch.utils import ppm
+    arena = str(tmp_path / "arena.ppm")
+    ppm.create(arena, 1024, 768)
+    calls = []
+    plain = cuda_step.block_forces_reference
+    monkeypatch.setattr(cuda_step, "block_forces_reference",
+                        lambda *a, **kw: calls.append(1) or plain(*a, **kw))
+    monkeypatch.setenv("NBODY_PLATFORM", "cpu")
+    capsys.readouterr()
+    rc = cli.main(["nbody", str(n), "0", arena, str(steps), "--pallas",
+                   "--dtype=float64"])
+    out = capsys.readouterr()
+    assert rc == 0, out.err
+    with open(os.path.join(REPO, oracle)) as f:
+        assert out.out == f.read()
+    assert len(calls) == steps
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])

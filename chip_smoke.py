@@ -103,7 +103,27 @@ The speed tools (``benchmarks/``), after them, with the same accounting:
     on one card;
   - K2 probes: ``ring_bias_probe``, ``bf16_stream_probe`` and a subset of
     ``autotune`` at one repetition;
-  - huge_n: one step at N=1048576 through one K2 launch, and its frame.
+  - huge_n: its argv ``N row_chunk out.ppm`` at N=1048576 with the default
+    row chunk: one step through K2 in 3 row chunks, and its frame.
+
+The huge-N path (phase_hosted), last, with the same accounting:
+  - (a) N=2^21 from random_state: engine.step (one K2 launch, a 512 MiB
+    workspace) against ``engine.make_hosted_row_step`` in chunks of 262144
+    rows (8 launches, 64 MiB each), bit-equal, each one's peak memory;
+    then render_frame against render_frame_hosted, byte-equal, with theirs.
+  - (b) N=26,000,000: one launch's workspace beside the card's
+    total_memory, and the launches engine.step takes at that N (its rows
+    sized by K2_WORKSPACE_BYTES); one K2 row chunk of 524288 rows at
+    row_g0=13,000,000 against all columns, its time and peak memory, its
+    first 128 rows bit-equal to K2 on those rows alone and 8 rows against
+    the plain version; then render_frame against render_frame_hosted on
+    the 26M bodies, byte-equal, with their times and peaks.  The whole
+    step at that N is run by hand (benchmarks/huge_n).
+  - (c) the CLI at N=262144, ``secs_per_update=1``, 3 steps, without and
+    with NBODY_HUGE_THRESHOLD=131072 (and K2_WORKSPACE_BYTES lowered to
+    hold 65536 rows a launch): stdout byte-equal, the first frame's md5
+    equal, K2 launched 3 + 1 (the warm-up step) and 3 x 4 times (no
+    discarded step).
 
 Every phase passes or raises: any failure exits non-zero before the result
 lines.  The last two lines of stdout are the kernel table and the result,
@@ -177,6 +197,11 @@ Tolerances (each comparison uses the plain version's max |F| as the scale):
   - animate: none; the card's frames are byte-equal to the CPU's render of
     the same recorded positions (as for the frames above).
   - entry: bit-equal to engine.step (the same call).
+  - the huge-N path: bit-equal and byte-equal throughout; each K2 row sums
+    its columns band by band in an order that does not depend on the rows
+    beside it in the launch, and a chunk that starts at a multiple of 128
+    keeps the bias segments.  The 8 rows at N=26M against the plain
+    version: TOL (2e-6 * max|F|).
 """
 
 from __future__ import annotations
@@ -2082,6 +2107,15 @@ def phase_entry(dev):
 AUTOTUNE_SUBSET = ((262144,), (32768, 65536), (65536, 131072), (65536,))
 PROBE_REPS = 1
 HUGE_SMOKE_N = 1 << 20
+# The huge-N path (phase_hosted): (a) engine.step against the row-chunked
+# step; (b) one K2 row chunk at HUGE_CAP_N, its first HEAD_ROWS rows against
+# K2 on those rows alone and PLAIN_ROWS rows, from a 128-aligned offset in
+# the chunk, against the plain version; (c) the CLI with and without
+# NBODY_HUGE_THRESHOLD, K2 in launches of HOSTED_CLI_CHUNK rows with it.
+HOSTED_N, HOSTED_CHUNK = 1 << 21, 262144
+HUGE_CAP_N, HUGE_CAP_CHUNK, HUGE_CAP_ROW0 = 26_000_000, 524288, 13_000_000
+HEAD_ROWS, PLAIN_ROWS, PLAIN_OFFSET = 128, 8, 262144
+HOSTED_CLI_N, HOSTED_CLI_STEPS, HOSTED_CLI_CHUNK = 262144, 3, 65536
 
 
 def phase_bench(dev):
@@ -2193,18 +2227,231 @@ def phase_k2_probes(dev):
 
 
 def phase_huge(dev, tmp):
-    """benchmarks/huge_n at N=HUGE_SMOKE_N: one step through K2 in one
-    launch, finite, and a frame with lit pixels.  Returns K2's launches."""
+    """benchmarks/huge_n's argv (``N row_chunk out.ppm``) at
+    N=HUGE_SMOKE_N with the tool's default row chunk: one step through K2
+    in ceil(N / row_chunk) launches, finite, and a frame with lit pixels.
+    Returns K2's launches."""
     from parallel_nbody_tpu_torch.benchmarks import huge_n
+    out_ppm = os.path.join(tmp, "huge.ppm")
+    rec_path = os.path.join(tmp, "huge.json")
+    out = io.StringIO()
     t0 = _reset_counts()
-    rec, _ = huge_n.huge_step(dev, HUGE_SMOKE_N,
-                              os.path.join(tmp, "huge.ppm"),
-                              log=lambda s: print("huge_n: " + s))
-    _, k2 = _read_counts("huge_n", t0, 0, 1)
-    print("huge_n: %s" % json.dumps(rec))
-    if not rec["lit_pixels"]:
-        raise AssertionError("huge_n: an empty frame")
+    with contextlib.redirect_stdout(out):
+        rc = huge_n.main(["huge_n", str(HUGE_SMOKE_N), str(huge_n.ROW_CHUNK),
+                          out_ppm, "--out=" + rec_path])
+    for line in out.getvalue().splitlines():
+        print("huge_n: " + line)
+    chunks = -(-HUGE_SMOKE_N // huge_n.ROW_CHUNK)
+    _, k2 = _read_counts("huge_n", t0, 0, chunks)
+    with open(rec_path) as f:
+        rec = json.load(f)
+    if rc != 0 or rec["chunks"] != chunks or not rec["lit_pixels"] or \
+            rec["frame"] != out_ppm or not os.path.getsize(out_ppm):
+        raise AssertionError("huge_n: rc %d, record %s" % (rc, rec))
     return k2
+
+
+def _peak(fn, dev):
+    """(result, ms, peak bytes allocated above what was allocated before)
+    of ``fn()``, by the host clock around a synchronized call."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, ms, torch.cuda.max_memory_allocated(dev) - base
+
+
+def _workspace_bytes(rows, cols):
+    """K2's (bands, 2, rows) fp32 workspace against ``cols`` columns."""
+    from parallel_nbody_tpu_torch.ops import cuda_step
+    band = cuda_step.band_width(cols, cuda_step.STREAM_BAND)
+    return -(-cols // band) * 2 * rows * 4
+
+
+def _hosted_step(dev):
+    """(a): engine.step (one K2 launch) against make_hosted_row_step in
+    chunks of HOSTED_CHUNK at N=HOSTED_N, bit-equal, with each one's peak
+    memory; then render_frame against render_frame_hosted on the stepped
+    state, byte-equal, with theirs.  Returns the chunked step's K2
+    launches."""
+    from parallel_nbody_tpu_torch.models import engine
+    from parallel_nbody_tpu_torch.state import random_state
+    cfg = _cfg("float32")
+    n = HOSTED_N
+    st = random_state(n, cfg, torch.Generator(device=dev).manual_seed(0),
+                      device=dev)
+    step_fn, warmup = engine.make_hosted_row_step(cfg, n, HOSTED_CHUNK)
+    warmup()
+    t0 = _reset_counts()
+    one, one_ms, one_peak = _peak(lambda: engine.step(cfg, st), dev)
+    _read_counts("hosted N=%d engine.step" % n, t0, 0, 1)
+    chunks = n // HOSTED_CHUNK
+    t0 = _reset_counts()
+    got, got_ms, got_peak = _peak(lambda: step_fn(st), dev)
+    _, k2 = _read_counts("hosted N=%d row chunks of %d" % (n, HOSTED_CHUNK),
+                         t0, 0, chunks)
+    equal = all(torch.equal(getattr(one, f), getattr(got, f))
+                for f in ("x", "y", "xv", "yv", "xf", "yf"))
+    mib = 2.0 ** 20
+    print("hosted N=%d: engine.step (1 K2 launch, workspace %.0f MiB) "
+          "%.3f ms, peak %.1f MiB; row chunks of %d (%d launches, "
+          "workspace %.0f MiB each) %.3f ms, peak %.1f MiB; bit-equal %s"
+          % (n, _workspace_bytes(n, n) / mib, one_ms, one_peak / mib,
+             HOSTED_CHUNK, chunks, _workspace_bytes(HOSTED_CHUNK, n) / mib,
+             got_ms, got_peak / mib, equal))
+    if not equal:
+        raise AssertionError("hosted: the row-chunked step differs from "
+                             "engine.step at N=%d" % n)
+    _frames(cfg, got, n, dev)
+    return k2
+
+
+def _huge_chunk(dev):
+    """(b): one K2 row chunk of HUGE_CAP_CHUNK rows at row_g0=HUGE_CAP_ROW0
+    against all HUGE_CAP_N columns, where one launch over all rows would
+    need a workspace of _workspace_bytes(N, N): its time and peak memory,
+    its first HEAD_ROWS rows bit-equal to K2 on those rows alone, and
+    PLAIN_ROWS rows against the plain version (TOL); beside it, the
+    launches that engine.step takes at that N.  Then _frames on the state
+    of N bodies.  Returns (K2's launches of the chunk, max |error| against
+    the plain version)."""
+    from parallel_nbody_tpu_torch.ops import cuda_step
+    from parallel_nbody_tpu_torch.state import random_state
+    cfg = _cfg("float32")
+    n, k, r0 = HUGE_CAP_N, HUGE_CAP_CHUNK, HUGE_CAP_ROW0
+    torch.cuda.empty_cache()
+    st = random_state(n, cfg, torch.Generator(device=dev).manual_seed(0),
+                      device=dev)
+    cols = _bodies(st)
+    flag = cuda_step.any_coincident(st.x, st.y, st.mass)
+    full = _workspace_bytes(n, n)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    step_rows = cuda_step.streamed_rows(n, torch.float32)
+    gb = 1e9
+    print("hosted N=%d: one launch's workspace %.3f GB (%.2f GiB) against "
+          "total_memory %.3f GB (%.2f GiB); engine.step takes K2 in %d "
+          "launches of %d rows (workspace %.3f GB each); the coincidence "
+          "flag %s"
+          % (n, full / gb, full / 2**30, total / gb, total / 2**30,
+             -(-n // step_rows), step_rows, _workspace_bytes(step_rows, n)
+             / gb, bool(flag)))
+
+    def rows(lo, hi):
+        return [t[lo:hi] for t in cols]
+
+    t0 = _reset_counts()
+    (fx, fy), ms, peak = _peak(lambda: cuda_step.block_forces_streamed(
+        cfg, *rows(r0, r0 + k), *cols, row_g0=r0, col_g0=0, biased=flag),
+        dev)
+    _, launches = _read_counts("hosted N=%d row chunk" % n, t0, 0, 1)
+    head = cuda_step.block_forces_streamed(
+        cfg, *rows(r0, r0 + HEAD_ROWS), *cols, row_g0=r0, col_g0=0,
+        biased=flag)
+    head_equal = bool(torch.equal(head[0], fx[:HEAD_ROWS])
+                      and torch.equal(head[1], fy[:HEAD_ROWS]))
+    lo = r0 + PLAIN_OFFSET
+    want = cuda_step.block_forces_streamed_reference(
+        cfg, *rows(lo, lo + PLAIN_ROWS), *cols, row_g0=lo, col_g0=0,
+        biased=flag)
+    got = (fx[PLAIN_OFFSET:PLAIN_OFFSET + PLAIN_ROWS],
+           fy[PLAIN_OFFSET:PLAIN_OFFSET + PLAIN_ROWS])
+    scale = max(float(w.abs().max()) for w in want)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    finite = bool(torch.isfinite(fx).all() and torch.isfinite(fy).all())
+    print("hosted N=%d: K2 on rows [%d, %d) x %d columns (workspace "
+          "%.3f GB) %.3f ms, peak %.3f GB above the state, %.6e "
+          "one-sided pairs/s; first %d rows bit-equal to K2 on them alone "
+          "%s; rows [%d, %d) vs the plain version max|err| %.6e /max|F| "
+          "%.6e (tol %.1e)"
+          % (n, r0, r0 + k, n, _workspace_bytes(k, n) / gb, ms, peak / gb,
+             k * n / (ms / 1e3), HEAD_ROWS, head_equal, lo,
+             lo + PLAIN_ROWS, err, err / scale, TOL[torch.float32]))
+    if not finite or not head_equal or \
+            not err <= TOL[torch.float32] * scale:
+        raise AssertionError("hosted: the N=%d row chunk is wrong (finite "
+                             "%s, head bit-equal %s, max|err| %.6e of "
+                             "max|F| %.6e)" % (n, finite, head_equal, err,
+                                               scale))
+    del fx, fy, head
+    _frames(cfg, st, n, dev)
+    return launches, err
+
+
+def _frames(cfg, st, n, dev):
+    """render_frame against render_frame_hosted (body chunks of 262144)
+    on ``st``: byte-equal and lit, each one's time and peak memory."""
+    from parallel_nbody_tpu_torch.ops import render
+    b = (st.x, st.y, st.radius)
+    whole, whole_ms, whole_peak = _peak(
+        lambda: render.render_frame(cfg, *b, n).cpu().numpy(), dev)
+    hosted, hosted_ms, hosted_peak = _peak(
+        lambda: render.render_frame_hosted(cfg, *b, n), dev)
+    mib = 2.0 ** 20
+    print("hosted N=%d frames: render_frame %.3f ms, peak %.1f MiB; "
+          "render_frame_hosted (body chunks of 262144) %.3f ms, peak "
+          "%.1f MiB; byte-equal %s, %d lit pixels"
+          % (n, whole_ms, whole_peak / mib, hosted_ms, hosted_peak / mib,
+             whole.tobytes() == hosted.tobytes(),
+             int(hosted.any(axis=2).sum())))
+    if whole.tobytes() != hosted.tobytes() or not hosted.any():
+        raise AssertionError("hosted: render_frame_hosted differs from "
+                             "render_frame at N=%d" % n)
+
+
+def _hosted_cli(dev, tmp):
+    """(c): the CLI at N=HOSTED_CLI_N with secs_per_update=1 for
+    HOSTED_CLI_STEPS steps, without and with NBODY_HUGE_THRESHOLD below N
+    (and K2_WORKSPACE_BYTES lowered so that the step takes K2 in launches
+    of HOSTED_CLI_CHUNK rows): stdout byte-equal, the first frame's md5
+    equal, K2 launched steps + 1 (the discarded warm-up step) times without
+    and steps x chunks with.  Returns the huge run's K2 launches."""
+    from parallel_nbody_tpu_torch.ops import cuda_step
+    from parallel_nbody_tpu_torch.utils import ppm
+    arena = os.path.join(tmp, "hosted.ppm")
+    ppm.create(arena, 1024, 768)
+    argv = [str(HOSTED_CLI_N), "1", arena, str(HOSTED_CLI_STEPS),
+            "--no-clamp", "--pallas"]
+    chunks = -(-HOSTED_CLI_N // HOSTED_CLI_CHUNK)
+    runs = {}
+    for label, env, want_k2 in (
+            ("one launch", {}, HOSTED_CLI_STEPS + 1),
+            ("huge", {"NBODY_HUGE_THRESHOLD": str(HOSTED_CLI_N // 2)},
+             HOSTED_CLI_STEPS * chunks)):
+        log = os.path.join(tmp, "hosted_%d.log" % len(runs))
+        budget = (_workspace_bytes(HOSTED_CLI_CHUNK, HOSTED_CLI_N) if env
+                  else cuda_step.K2_WORKSPACE_BYTES)
+        t0 = _reset_counts()
+        with mock.patch.dict(os.environ, dict(env, NBODY_FRAME_LOG=log)), \
+                mock.patch.object(cuda_step, "K2_WORKSPACE_BYTES", budget):
+            out, err = _cli(argv, "cuda")
+        _, k2 = _read_counts("hosted cli %s" % label, t0, 0, want_k2)
+        with open(log) as f:
+            md5s = re.findall(r"md5=([0-9a-f]{32})", f.read())
+        runs[label] = (out, md5s, k2, _rtime(err))
+    (out0, md5s0, k2_0, rt0), (out1, md5s1, k2_1, rt1) = runs.values()
+    print("hosted cli: %s; RTIME %.3f s one launch, %.3f s huge (%d chunks "
+          "of %d); K2 launches %d and %d; frames %d and %d, first md5 %s "
+          "and %s; stdout byte-equal %s"
+          % (" ".join(argv), rt0, rt1, chunks, HOSTED_CLI_CHUNK, k2_0, k2_1,
+             len(md5s0), len(md5s1), md5s0[:1], md5s1[:1], out0 == out1))
+    _state_table(out1, HOSTED_CLI_N)
+    if out0 != out1 or not md5s0 or md5s0[:1] != md5s1[:1]:
+        raise AssertionError("hosted cli: the huge branch differs from the "
+                             "one-launch run")
+    return k2_1
+
+
+def phase_hosted(dev, tmp):
+    """The huge-N path: (a) _hosted_step, (b) _huge_chunk, (c)
+    _hosted_cli.  Returns ({path: K2 launches, each counted from 0}, the
+    row chunk's max |error| against the plain version)."""
+    launches = {"hosted step N=%d" % HOSTED_N: _hosted_step(dev)}
+    launches["row chunk N=%d" % HUGE_CAP_N], err = _huge_chunk(dev)
+    launches["cli huge N=%d" % HOSTED_CLI_N] = _hosted_cli(dev, tmp)
+    return launches, err
 
 
 def _bound(n_rows, n_cols):
@@ -2292,6 +2539,11 @@ def main() -> int:
         launches_huge = phase_huge(dev, tmp)
     print("speed tools (bench, perf gate, scaling, K2 probes, huge_n): "
           "%.1f s" % (time.perf_counter() - t_speed))
+    t_hosted = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches_hosted, max_err_hosted = phase_hosted(dev, tmp)
+    print("hosted (the huge-N path): %.1f s"
+          % (time.perf_counter() - t_hosted))
     print("chip_smoke: %.1f s" % (time.perf_counter() - t_start))
     source = "parallel_nbody_tpu_torch/csrc/%s"
     replaces = "parallel_nbody_tpu/ops/pallas_step.py:%d"
@@ -2332,6 +2584,8 @@ def main() -> int:
         "launches_scaling": launches_scaling[1],
         "launches_k2_probes": launches_probes[1],
         "launches_huge_n": launches_huge,
+        "launches_hosted": launches_hosted,
+        "max_abs_err_row_chunk_n%d" % HUGE_CAP_N: max_err_hosted,
         "max_abs_err": max_err_k2,
         "ms": times_big["K2"],
         "ms_biased": times_big["K2_biased"],

@@ -5,9 +5,13 @@ The reference's hot loop (nbody-seq.c:457-472) is
 with a buffer flip.  Here ``run`` is a Python loop of ``step``, each step a
 sequence of eager tensor ops on the state's device; with ``kernel="cuda"``
 the force pass is one call of a hand-written kernel (K1, or K2 above 131072
-bodies; ops/cuda_step.cuda_forces).  Nothing in the
+bodies, in several row launches past K2's workspace bound;
+ops/cuda_step.cuda_forces).  Nothing in the
 loop reads a value back to the host, so on a GPU the launches queue without
 waiting for the device (the NaN-check debug mode of ``run`` aside).
+
+``make_hosted_row_step`` is the step with the force pass through K2 in row
+launches of a chunk the caller sets, at any N.
 """
 
 from __future__ import annotations
@@ -15,7 +19,9 @@ from __future__ import annotations
 import torch
 
 from ..config import SimConfig
-from ..ops.cuda_step import cuda_forces, forces_coincident_dispatch
+from ..ops import _build
+from ..ops.cuda_step import (cuda_forces, forces_coincident_dispatch,
+                             streamed_forces)
 from ..ops.forces import compute_forces_dense
 from ..ops.integrate import compute_positions, compute_velocities
 from ..state import State
@@ -36,10 +42,48 @@ def step(cfg: SimConfig, state: State) -> State:
     else:
         xf, yf = compute_forces_dense(cfg, state.x, state.y, state.mass,
                                       state.radius)
+    return _integrate(cfg, state, xf, yf)
+
+
+def _integrate(cfg: SimConfig, state: State, xf, yf) -> State:
+    """Velocity and position integration of ``state`` under forces
+    (xf, yf)."""
     xv, yv = compute_velocities(cfg, state.xv, state.yv, xf, yf, state.mass)
     x, y, xv, yv = compute_positions(cfg, state.x, state.y, xv, yv,
                                      mass=state.mass)
     return State(x, y, xv, yv, xf, yf, state.mass, state.radius)
+
+
+def make_hosted_row_step(cfg: SimConfig, n: int, row_chunk: int = 524288):
+    """``step`` of ``n`` bodies with the force pass through K2 in launches
+    of ``row_chunk`` rows at any ``n`` (``cuda_step.streamed_forces``): the
+    counterpart of the JAX package's ``make_hosted_row_step``, for a caller
+    that sets the chunk itself, as ``benchmarks/huge_n`` does.  ``step``
+    runs K2 only above 131072 bodies, in launches sized by
+    ``cuda_step.K2_WORKSPACE_BYTES``.  The chunks bound K2's workspace; a
+    CUDA launch has no time limit (the JAX package's chunks also keep each
+    TPU dispatch short).  ``any_coincident`` runs once a step, and its 0-d
+    device flag goes to every launch unread by the host.
+
+    Returns (step_fn, warmup): ``step_fn(state, fence=None) -> State``
+    calls ``fence(xf)`` after each launch when given; ``warmup()`` builds
+    and loads the kernel library and runs no step.  On CPU tensors each
+    launch is K2's plain version.
+    """
+
+    def step_fn(state: State, fence=None) -> State:
+        if state.x.shape[0] != n:
+            raise ValueError("make_hosted_row_step: a step of %d bodies got "
+                             "%d" % (n, state.x.shape[0]))
+        xf, yf = forces_coincident_dispatch(
+            state.x, state.y, state.mass,
+            lambda biased: streamed_forces(
+                cfg, state.x, state.y, state.mass, state.radius,
+                biased=biased, accum=cfg.accum, row_chunk=row_chunk,
+                fence=fence))
+        return _integrate(cfg, state, xf, yf)
+
+    return step_fn, _build.load
 
 
 def run(cfg: SimConfig, state: State, steps: int,

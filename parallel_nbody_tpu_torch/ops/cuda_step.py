@@ -36,7 +36,9 @@ rounded to bfloat16 once (``pallas_step._compute_dtype``).
 ``pallas_block_forces_auto`` do: K2 above ``STREAMED_ABOVE`` bodies.  On the
 H100 that threshold is no memory limit (K1 streams its column tiles from
 device memory at any N); it is kept so that the port sums in the same
-structure as the JAX package at every N.
+structure as the JAX package at every N.  K2's workspace of band partials
+grows with rows x N, so ``cuda_forces`` runs K2 in row launches that keep it
+within ``K2_WORKSPACE_BYTES`` (``streamed_forces``).
 
 On CUDA tensors each wrapper launches its kernel or raises; on CPU tensors
 it runs its plain PyTorch version (``block_forces_reference``,
@@ -76,6 +78,10 @@ _BIAS = {torch.float32: (2.0 ** -26, 2.0 ** -50),
 _CHUNK_ELEMS = 1 << 24
 # The band kernel's grid puts the bands on its y axis.
 _MAX_BANDS = 65535
+# The most bytes of band partials that ``streamed_forces`` lets one K2 launch
+# keep: 1 GiB holds one launch over all rows up to N=2.9M in fp32 and
+# N=2**21 in fp64; past that the rows go in several launches.
+K2_WORKSPACE_BYTES = 1 << 30
 
 
 def _flag(biased):
@@ -378,14 +384,58 @@ def block_forces_auto(cfg: SimConfig, xi, yi, mi, ri, xj, yj, mj, rj, *,
               col_g0=col_g0, biased=biased, accum=accum)
 
 
+def streamed_rows(k: int, dtype) -> int:
+    """The rows of one K2 launch against ``k`` columns that
+    ``streamed_forces`` takes by default: as many as keep the (bands, 2,
+    rows) workspace of band partials within ``K2_WORKSPACE_BYTES``, a
+    multiple of ``TILE`` and at least one tile."""
+    bands = -(-k // band_width(k, STREAM_BAND))
+    per_row = bands * 2 * _COMPUTE[dtype].itemsize
+    return max(TILE, K2_WORKSPACE_BYTES // per_row // TILE * TILE)
+
+
+def streamed_forces(cfg: SimConfig, x, y, mass, radius, *, biased,
+                    accum: str = "plain", row_chunk: int | None = None,
+                    fence=None):
+    """Total pairwise forces (square case) through K2, the rows in launches
+    of ``row_chunk`` (None: ``streamed_rows``; the last launch takes the
+    rest), each against all columns at its global offset ``row_g0``.
+
+    The chunks bound K2's workspace: over all N rows at once it is about
+    N**2 / 8192 bytes in fp32, 89 GB at N=27M, past the H100's 85 GB of
+    device memory.  Each row
+    sums its columns band by band in an order that does not depend on the
+    rows that share its launch, so chunks that start at multiples of
+    ``TILE`` (which keeps the bias segments' row blocks) give one launch's
+    forces bit for bit.  ``fence(xf)`` is called after each launch when
+    given."""
+    n = x.shape[0]
+    cols = (x, y, mass, radius)
+    step = row_chunk or streamed_rows(n, x.dtype)
+    fxs, fys = [], []
+    for r0 in range(0, n, step):
+        fx, fy = block_forces_streamed(cfg, *(t[r0:r0 + step] for t in cols),
+                                       *cols, row_g0=r0, biased=biased,
+                                       accum=accum)
+        if fence is not None:
+            fence(fx)
+        fxs.append(fx)
+        fys.append(fy)
+    if len(fxs) == 1:
+        return fxs[0], fys[0]
+    return torch.cat(fxs), torch.cat(fys)
+
+
 def cuda_forces(cfg: SimConfig, x, y, mass, radius, *, biased,
                 accum: str = "plain"):
     """Total pairwise forces (square case), as ``pallas_forces`` computes
-    them: K2 with band ``STREAM_BAND`` above ``STREAMED_ABOVE`` bodies, K1
-    otherwise."""
-    fn = block_forces_streamed if x.shape[0] > STREAMED_ABOVE else block_forces
-    return fn(cfg, x, y, mass, radius, x, y, mass, radius, biased=biased,
-              accum=accum)
+    them: K2 with band ``STREAM_BAND`` above ``STREAMED_ABOVE`` bodies, in
+    row launches (``streamed_forces``), K1 otherwise."""
+    if x.shape[0] > STREAMED_ABOVE:
+        return streamed_forces(cfg, x, y, mass, radius, biased=biased,
+                               accum=accum)
+    return block_forces(cfg, x, y, mass, radius, x, y, mass, radius,
+                        biased=biased, accum=accum)
 
 
 def _lexsort(keys) -> torch.Tensor:

@@ -17,7 +17,10 @@ chunks of ``body_chunk``, merging the chunks' minima: earlier chunks hold
 smaller indices, so an elementwise ``minimum`` preserves first-hit-by-index
 exactly and any chunking gives the same bytes.  The (rows, W, bodies) hit
 temporaries of one chunk are the only large allocation;
-``HIT_BUDGET_BYTES`` bounds them whatever N is.
+``HIT_BUDGET_BYTES`` bounds them whatever N is.  ``render_frame_hosted``
+does the same over the bodies in chunks, each chunk's map over the whole
+frame merged by the same minimum, so that the few vectors over all bodies
+that the selection keeps cover one chunk.
 """
 
 from __future__ import annotations
@@ -104,17 +107,60 @@ def render_frame(cfg: SimConfig, x, y, radius, n_real: int,
     ``HIT_BUDGET_BYTES``, so peak memory does not grow with N.  Every
     (row_block, body_chunk) gives the same bytes.
     """
-    h, w = cfg.ydim, cfg.xdim
+    radius = _mask_padding(radius, n_real, 0)
+    best = _hit_map(cfg.ydim, cfg.xdim, x, y, radius, row_block, body_chunk)
+    return tint_rgb(best, n_real)
+
+
+def render_frame_hosted(cfg: SimConfig, x, y, radius, n_real: int,
+                        body_chunk: int = 262144, fence=None):
+    """``render_frame`` over the bodies in chunks of ``body_chunk``, for
+    huge N (the counterpart of the JAX package's ``render_frame_hosted``):
+    each chunk's min-hit map over the whole frame, in 32-row blocks, is
+    merged into the frame's by an elementwise minimum on the device.
+    Earlier chunks hold smaller global indices, so the first hit by index
+    survives and the pixels are ``render_frame``'s.  Besides the hit
+    temporaries (``HIT_BUDGET_BYTES``), ``render_frame`` keeps a few
+    vectors over all N bodies to select each block's near bodies; here
+    they cover one chunk.  ``fence(sub)`` is called with each chunk's
+    (ydim, xdim) map when given.  Returns a host (ydim, xdim, 3) uint8
+    array.
+    """
     n = x.shape[0]
+    h, w = cfg.ydim, cfg.xdim
+    best = torch.full((h, w), _NO_HIT, dtype=torch.int32, device=x.device)
+    for b0 in range(0, n, body_chunk):
+        sl = slice(b0, b0 + body_chunk)
+        sub = _hit_map(h, w, x[sl], y[sl],
+                       _mask_padding(radius[sl], n_real, b0), 32,
+                       base_idx=b0)
+        if fence is not None:
+            fence(sub)
+        torch.minimum(best, sub, out=best)
+    return tint_rgb(best, n_real).cpu().numpy()
+
+
+def _mask_padding(radius, n_real: int, b0: int):
+    """``radius`` of the bodies b0, b0+1, ... with those at or past
+    ``n_real`` set to -1, which never satisfies d <= r + 0.5."""
+    if b0 + radius.shape[0] <= n_real:
+        return radius
+    gid = b0 + torch.arange(radius.shape[0], device=radius.device)
+    return radius.masked_fill(gid >= n_real, -1.0)
+
+
+def _hit_map(h: int, w: int, x, y, radius, row_block: int,
+             body_chunk: int | None = None, base_idx: int = 0):
+    """(h, w) int32 map of the minimum GLOBAL index of the bodies that hit
+    each pixel (``_NO_HIT`` where none does); body i of x/y/radius has
+    index ``base_idx + i``.  Walks the frame in blocks of ``row_block``
+    rows, keeps the bodies near enough to reach a row of the block, and
+    takes these ``body_chunk`` at a time (None: as many as
+    ``HIT_BUDGET_BYTES`` allows)."""
     device = x.device
-    # Disable padding bodies: radius -1 never satisfies d <= r + 0.5.
-    if n_real < n:
-        real = torch.arange(n, device=device) < n_real
-        radius = radius.masked_fill(~real, -1.0)
     if body_chunk is None:
         body_chunk = max(1, HIT_BUDGET_BYTES
                          // _chunk_bytes_per_body(row_block, w, x.dtype))
-
     best = torch.full((h, w), _NO_HIT, dtype=torch.int32, device=device)
     reach = _reach(y, radius, h)
     y64 = y.double()
@@ -136,9 +182,10 @@ def render_frame(cfg: SimConfig, x, y, radius, n_real: int,
                                      base_idx=b0)
             torch.minimum(first, sub, out=first)
         # Positions in ``near`` back to body indices (a miss stays a miss).
-        body = near[first.clamp(max=m - 1).long()].to(torch.int32)
+        body = (near[first.clamp(max=m - 1).long()] + base_idx).to(
+            torch.int32)
         rows.copy_(body.masked_fill(first == _NO_HIT, _NO_HIT))
-    return tint_rgb(best, n_real)
+    return best
 
 
 def _reach(y, radius, h: int):

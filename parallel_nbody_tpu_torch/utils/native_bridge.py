@@ -1,9 +1,9 @@
 """ctypes bridge to the native host library (native/libnbody_host.so).
 
-Three entry points of that library are used: the glibc-rand init loop
-(large N: milliseconds against seconds in Python), the snprintf final-state
-formatter (the reference's own printf semantics) and the mmap PPM frame
-blit.  All are bit-identical to the Python implementations, which remain the
+Four entry points of that library are used: the glibc-rand init loop
+(large N: milliseconds against seconds in Python), the raw glibc ``rand()``
+stream, the snprintf final-state formatter (the reference's own printf
+semantics) and the mmap PPM frame blit.  All are bit-identical to the Python implementations, which remain the
 fallback when the library is missing or does not load (``make -C native``
 builds it).
 """
@@ -29,6 +29,10 @@ def load():
         lib = ctypes.CDLL(_LIB_PATH)
     except OSError:
         return None
+    lib.nbody_glibc_rand_fill.argtypes = [
+        ctypes.c_uint32, ctypes.c_int64,
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")]
+    lib.nbody_glibc_rand_fill.restype = None
     dptr = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
     lib.nbody_init.argtypes = [ctypes.c_uint32, ctypes.c_int64,
                                ctypes.c_int32, ctypes.c_int32,
@@ -58,6 +62,17 @@ def nbody_init(n: int, xdim: int, ydim: int, seed: int):
     arrs = [np.empty(n, np.float64) for _ in range(6)]
     lib.nbody_init(seed, n, xdim, ydim, *arrs)
     return tuple(arrs)
+
+
+def glibc_rand_fill(seed: int, n: int) -> np.ndarray:
+    """The first ``n`` values of glibc ``rand()`` after ``srand(seed)``
+    (int64), from the native library."""
+    lib = load()
+    if lib is None:
+        raise RuntimeError("native library %s is unavailable" % _LIB_PATH)
+    out = np.empty(n, np.int64)
+    lib.nbody_glibc_rand_fill(seed, n, out)
+    return out
 
 
 def format_state_native(x, y, xf, yf, xv, yv) -> str | None:

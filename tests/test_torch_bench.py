@@ -373,8 +373,9 @@ def test_no_default_record_from_a_cpu_run(monkeypatch, tmp_path):
 
 def test_huge_n_step_matches_jax_engine_step(tmp_path):
     """N=4096 in fp32 on the CPU: huge_n's step (``huge_step``: the
-    seeded ``random_state`` and one ``engine.step``, K1's plain version at
-    this size) against JAX ``engine.step`` with the Pallas kernel in
+    seeded ``random_state`` and one step of ``make_hosted_row_step``, K2's
+    plain version in one row chunk at this size, one band, which sums as
+    K1's does) against JAX ``engine.step`` with the Pallas kernel in
     interpret mode, on the same state carried across as numpy.  The two
     sum each row in other tiles (128 columns against Pallas's 1024) and
     agree to ~1e-7 of max|F| (tests/test_torch_ops.py): forces within 1e-5
@@ -402,11 +403,12 @@ def test_huge_n_step_matches_jax_engine_step(tmp_path):
 def test_huge_n_on_the_cpu_writes_a_frame_and_a_record(tmp_path):
     ppm_path = tmp_path / "frame.ppm"
     out = tmp_path / "huge.json"
-    assert huge_n.main(["huge_n", "512", str(ppm_path), "--device=cpu",
-                        "--out=%s" % out]) == 0
+    assert huge_n.main(["huge_n", "512", "128", str(ppm_path),
+                        "--device=cpu", "--out=%s" % out]) == 0
     rec = json.loads(out.read_text())
     assert set(rec) >= {"n", "init_s", "step_s", "one_sided_pairs_per_s",
                         "unordered_pairs_per_s", "render_s"}
     assert rec["n"] == 512 and rec["lit_pixels"] > 0
+    assert rec["row_chunk"] == 128 and rec["chunks"] == 4
     assert rec["fingerprint"]["device"] == "cpu"
     assert ppm_path.stat().st_size > 1024 * 768 * 3

@@ -526,6 +526,67 @@ def test_render_frame_peak_memory_is_bounded(dev):
     assert peak <= render.HIT_BUDGET_BYTES + 32 * 2**20
 
 
+@pytest.mark.parametrize("biased", [False, True])
+def test_hosted_row_step_on_card_is_engine_step(biased, dev):
+    """The row-chunked step (K2 in chunks of 65536 rows, a tail of 77) is
+    engine.step's one K2 launch bit for bit: each row sums its columns band
+    by band in an order that does not depend on the rows in the launch, and
+    chunks that start at multiples of 128 keep the bias segments.  With
+    ``biased`` a coincident pair spans two chunks."""
+    from parallel_nbody_tpu_torch.models import engine
+    n = 262144 + 77
+    cfg = SimConfig(force_mode="fast", dtype="float32", kernel="cuda")
+    st = random_state(n, cfg, torch.Generator(device=dev).manual_seed(0),
+                      device=dev)
+    if biased:
+        x, y = st.x.clone(), st.y.clone()
+        x[200000], y[200000] = x[5], y[5]
+        st = st._replace(x=x, y=y)
+    assert bool(cuda_step.any_coincident(st.x, st.y, st.mass)) == biased
+    step_fn, warmup = engine.make_hosted_row_step(cfg, n, row_chunk=65536)
+    warmup()
+    before = cuda_step.block_forces_streamed.launches
+    got = step_fn(st)
+    torch.cuda.synchronize()
+    assert cuda_step.block_forces_streamed.launches == before + 5
+    want = engine.step(cfg, st)
+    for f in ("x", "y", "xv", "yv", "xf", "yf"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+def test_cuda_forces_row_launches_on_card(dev, monkeypatch):
+    """cuda_forces with K2_WORKSPACE_BYTES lowered to hold 65536 rows a
+    launch (5 launches at N=262144+77) gives its one launch's forces bit
+    for bit."""
+    n = 262144 + 77
+    cfg = SimConfig(force_mode="fast", dtype="float32", kernel="cuda")
+    st = random_state(n, cfg, torch.Generator(device=dev).manual_seed(1),
+                      device=dev)
+    b = (st.x, st.y, st.mass, st.radius)
+    flag = cuda_step.any_coincident(st.x, st.y, st.mass)
+    want = cuda_step.cuda_forces(cfg, *b, biased=flag)
+    bands = -(-n // cuda_step.STREAM_BAND)
+    monkeypatch.setattr(cuda_step, "K2_WORKSPACE_BYTES", 65536 * bands * 8)
+    before = cuda_step.block_forces_streamed.launches
+    got = cuda_step.cuda_forces(cfg, *b, biased=flag)
+    torch.cuda.synchronize()
+    assert cuda_step.block_forces_streamed.launches == before + 5
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_render_frame_hosted_on_card_is_render_frame(dev):
+    """Body chunks of 20000 at N=65536 with 536 padding bodies: the same
+    bytes as render_frame, on the card."""
+    from parallel_nbody_tpu_torch.ops import render
+    n = 65536
+    cfg = SimConfig(force_mode="fast", dtype="float32", kernel="cuda")
+    st = init_state(n, cfg, device=dev)
+    b = (st.x, st.y, st.radius)
+    got = render.render_frame_hosted(cfg, *b, n - 536, body_chunk=20000)
+    want = render.render_frame(cfg, *b, n - 536).cpu().numpy()
+    assert got.tobytes() == want.tobytes() and got.any()
+
+
 def test_cli_frames_on_card_do_not_move_the_state(dev, arena, tmp_path,
                                                   capsys, monkeypatch):
     log = str(tmp_path / "frames.log")

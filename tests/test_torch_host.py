@@ -145,6 +145,22 @@ def test_native_init_matches_python_loop(monkeypatch):
         assert a.tobytes() == b.tobytes()
 
 
+@pytest.mark.parametrize("seed, n", [(27102015, 5000), (3000000000, 500),
+                                     (4294967295, 500)])
+def test_native_glibc_rand_fill_equals_jax(seed, n):
+    """The raw rand() stream from the native library, as
+    tests/test_native.py draws it: equal to the JAX package's wrapper and to
+    the port's Python stream."""
+    import parallel_nbody_tpu.utils.native_bridge as jnative
+    if not native_bridge.available():
+        pytest.skip("native library unavailable")
+    got = native_bridge.glibc_rand_fill(seed, n)
+    assert got.dtype == np.int64 and got.shape == (n,)
+    np.testing.assert_array_equal(got, jnative.glibc_rand_fill(seed, n))
+    rng = tglibc.GlibcRand(seed)
+    np.testing.assert_array_equal(got, [rng.rand() for _ in range(n)])
+
+
 def test_init_state_overflow_is_loud():
     with pytest.raises(ValueError, match="overflows dtype"):
         tstate._checked_cast(np.array([1.0, 1e300]), torch.float32, "mass")

@@ -495,6 +495,7 @@ def _simulate(device, n, secsup, ppm_path, steps, opts, n_dev,
     render_fn = None
     if secsup > 0 and (spawned or not multi):
         from .ops.render import render_frame
+        from .utils.timing import span
 
         # Optional frame accounting for tests/instrumentation: append one
         # line per rendered frame to the named file.
@@ -505,8 +506,11 @@ def _simulate(device, n, secsup, ppm_path, steps, opts, n_dev,
                 st = unpad_state(gather_state(st), n_real)  # every rank
                 if not rank0:
                     return
-            frame = render_frame(cfg, st.x, st.y, st.radius, n).cpu().numpy()
-            ppmio.write_pixels(ppm, frame)
+            pixels = render_frame(cfg, st.x, st.y, st.radius, n)
+            with span("nbody.frame.copy"):
+                frame = pixels.cpu().numpy()
+            with span("nbody.frame.write"):
+                ppmio.write_pixels(ppm, frame)
             if frame_log:
                 _log_frame(frame_log, frame)
 

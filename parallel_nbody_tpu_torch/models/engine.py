@@ -26,31 +26,39 @@ from ..ops.forces import compute_forces_dense
 from ..ops.integrate import compute_positions, compute_velocities
 from ..state import State
 from ..utils.debug import check_finite
+from ..utils.timing import span
 
 
 def step(cfg: SimConfig, state: State) -> State:
-    """One simulation step (force -> velocity -> position)."""
-    if cfg.kernel == "cuda":
-        # The coincidence flag stays on the device: the kernel reads it and
-        # adds the reference's atan2(0,0) kick (nbody-seq.c:91-106) only on
-        # steps that hold coincident distinct bodies.
-        xf, yf = forces_coincident_dispatch(
-            state.x, state.y, state.mass,
-            lambda biased: cuda_forces(cfg, state.x, state.y, state.mass,
-                                       state.radius, biased=biased,
-                                       accum=cfg.accum))
-    else:
-        xf, yf = compute_forces_dense(cfg, state.x, state.y, state.mass,
-                                      state.radius)
-    return _integrate(cfg, state, xf, yf)
+    """One simulation step (force -> velocity -> position), the span
+    ``nbody.step``: every operation it launches lies under one of its
+    children ``nbody.coincident``, ``nbody.forces`` or ``nbody.integrate``
+    (``utils.timing.span``)."""
+    with span("nbody.step"):
+        if cfg.kernel == "cuda":
+            # The coincidence flag stays on the device: the kernel reads it
+            # and adds the reference's atan2(0,0) kick (nbody-seq.c:91-106)
+            # only on steps that hold coincident distinct bodies.
+            xf, yf = forces_coincident_dispatch(
+                state.x, state.y, state.mass,
+                lambda biased: cuda_forces(cfg, state.x, state.y,
+                                           state.mass, state.radius,
+                                           biased=biased, accum=cfg.accum))
+        else:
+            with span("nbody.forces"):
+                xf, yf = compute_forces_dense(cfg, state.x, state.y,
+                                              state.mass, state.radius)
+        return _integrate(cfg, state, xf, yf)
 
 
 def _integrate(cfg: SimConfig, state: State, xf, yf) -> State:
     """Velocity and position integration of ``state`` under forces
-    (xf, yf)."""
-    xv, yv = compute_velocities(cfg, state.xv, state.yv, xf, yf, state.mass)
-    x, y, xv, yv = compute_positions(cfg, state.x, state.y, xv, yv,
-                                     mass=state.mass)
+    (xf, yf), the span ``nbody.integrate``."""
+    with span("nbody.integrate"):
+        xv, yv = compute_velocities(cfg, state.xv, state.yv, xf, yf,
+                                    state.mass)
+        x, y, xv, yv = compute_positions(cfg, state.x, state.y, xv, yv,
+                                         mass=state.mass)
     return State(x, y, xv, yv, xf, yf, state.mass, state.radius)
 
 
@@ -75,13 +83,14 @@ def make_hosted_row_step(cfg: SimConfig, n: int, row_chunk: int = 524288):
         if state.x.shape[0] != n:
             raise ValueError("make_hosted_row_step: a step of %d bodies got "
                              "%d" % (n, state.x.shape[0]))
-        xf, yf = forces_coincident_dispatch(
-            state.x, state.y, state.mass,
-            lambda biased: streamed_forces(
-                cfg, state.x, state.y, state.mass, state.radius,
-                biased=biased, accum=cfg.accum, row_chunk=row_chunk,
-                fence=fence))
-        return _integrate(cfg, state, xf, yf)
+        with span("nbody.step"):
+            xf, yf = forces_coincident_dispatch(
+                state.x, state.y, state.mass,
+                lambda biased: streamed_forces(
+                    cfg, state.x, state.y, state.mass, state.radius,
+                    biased=biased, accum=cfg.accum, row_chunk=row_chunk,
+                    fence=fence))
+            return _integrate(cfg, state, xf, yf)
 
     return step_fn, _build.load
 

@@ -50,6 +50,7 @@ from __future__ import annotations
 import torch
 
 from ..config import SimConfig
+from ..utils.timing import span
 from . import _build
 
 # pallas_step._VMEM_RESIDENT_LIMIT and pallas_block_forces_streamed's band.
@@ -494,5 +495,9 @@ def forces_coincident_dispatch(x, y, mass, call):
     """Run ``call(biased)`` — which must close over its inputs and return
     (xf, yf) — with ``biased`` the device-side ``any_coincident`` flag: the
     kernel adds the coincident kick only where the flag is set, in place of
-    the JAX package's ``lax.cond`` between two kernels."""
-    return call(any_coincident(x, y, mass))
+    the JAX package's ``lax.cond`` between two kernels.  The flag is the
+    span ``nbody.coincident``, the call ``nbody.forces``."""
+    with span("nbody.coincident"):
+        biased = any_coincident(x, y, mass)
+    with span("nbody.forces"):
+        return call(biased)

@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from ..config import SimConfig
+from ..utils.timing import span
 
 _NO_HIT = torch.iinfo(torch.int32).max
 
@@ -105,11 +106,14 @@ def render_frame(cfg: SimConfig, x, y, radius, n_real: int,
     ``body_chunk`` bounds the body axis of the (row_block, W, bodies) hit
     temporaries; left as None it is the largest chunk whose temporaries fit
     ``HIT_BUDGET_BYTES``, so peak memory does not grow with N.  Every
-    (row_block, body_chunk) gives the same bytes.
+    (row_block, body_chunk) gives the same bytes.  The span
+    ``nbody.render``.
     """
-    radius = _mask_padding(radius, n_real, 0)
-    best = _hit_map(cfg.ydim, cfg.xdim, x, y, radius, row_block, body_chunk)
-    return tint_rgb(best, n_real)
+    with span("nbody.render"):
+        radius = _mask_padding(radius, n_real, 0)
+        best = _hit_map(cfg.ydim, cfg.xdim, x, y, radius, row_block,
+                        body_chunk)
+        return tint_rgb(best, n_real)
 
 
 def render_frame_hosted(cfg: SimConfig, x, y, radius, n_real: int,

@@ -1,15 +1,20 @@
-"""Instrumentation: wall-clock timing, communication time and profiler
-traces.
+"""Instrumentation: program spans, communication time and profiler traces.
 
-The reference brackets its per-step MPI_Allgatherv with MPI_Wtime under
-``--measure-comm`` (nbody-par.c:912-918).  ``measure_comm_fraction`` times
-the sharded step's collectives alone, on the same shards, as the JAX
-package times a comm-only program.  ``trace`` wraps a region in a
-``torch.profiler`` trace (CPU activity, and CUDA activity when a card is
-present) and writes it as a gzipped Chrome trace under the given directory;
-``trace_comm_share`` reads the newest trace there and reports how much of
-the leaf op time went to collectives (gloo and NCCL operations), measured
-inside the real program.  On one device that share is zero.
+``span(name)`` marks a layer of the program (``nbody.step`` and its three
+children ``nbody.coincident``, ``nbody.forces``, ``nbody.integrate``;
+``nbody.render``; the CLI's ``nbody.frame.copy`` and ``nbody.frame.write``)
+as a ``torch.profiler`` range while a profiler records, and costs one flag
+check otherwise; the profiler that records keeps the spans and writes them
+into its trace, beside the kernels they launched.  The reference brackets
+its per-step MPI_Allgatherv with MPI_Wtime under ``--measure-comm``
+(nbody-par.c:912-918).  ``measure_comm_fraction`` times the sharded step's
+collectives alone, on the same shards, as the JAX package times a comm-only
+program.  ``trace`` wraps a region in a ``torch.profiler`` trace (CPU
+activity, and CUDA activity when a card is present) and writes it as a
+gzipped Chrome trace under the given directory; ``trace_comm_share`` reads
+the newest trace there and reports how much of the leaf op time went to
+collectives (gloo and NCCL operations), measured inside the real program.
+On one device that share is zero.
 """
 
 from __future__ import annotations
@@ -22,7 +27,22 @@ import os
 import shutil
 import time
 
-from .output import nr_flops, pair_interactions
+import torch
+
+# Returned by ``span`` while no profiler records: one shared instance, so
+# an unrecorded span builds nothing.
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that marks ``name`` as a range of the program: a
+    ``torch.profiler.record_function`` while a ``torch.profiler`` records
+    (``trace``, the CLI's ``--trace=DIR``, a ``profile(...).start()`` of the
+    caller), else a shared no-op context.  The check reads the profiler's
+    own process-wide flag, so spans cost one attribute read when off."""
+    if torch.autograd.profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def measure_comm_fraction(cfg, mesh, state, comm: str,
@@ -34,7 +54,6 @@ def measure_comm_fraction(cfg, mesh, state, comm: str,
     collective: every rank calls it.  One untimed round first; the timed
     rounds end with a synchronize and a barrier, so the figure covers the
     slowest rank.  ``cfg`` is unused (kept for the JAX signature)."""
-    import torch
     import torch.distributed as dist
 
     from ..parallel.mesh import (BODY_AXIS, all_gather, ring_hop,
@@ -77,31 +96,6 @@ def measure_comm_fraction(cfg, mesh, state, comm: str,
     return (time.perf_counter() - t0) / iters
 
 
-class StepTimer:
-    """Wall-clock timing + the reference's throughput accounting."""
-
-    def __init__(self, n: int, steps: int):
-        self.n = n
-        self.steps = steps
-        self.rtime = 0.0
-
-    def __enter__(self):
-        self._t0 = time.time()
-        return self
-
-    def __exit__(self, *exc):
-        self.rtime = time.time() - self._t0
-        return False
-
-    @property
-    def gflops(self) -> float:
-        return nr_flops(self.n, self.steps) / 1e9 / self.rtime
-
-    @property
-    def interactions_per_sec(self) -> float:
-        return pair_interactions(self.n, self.steps) / self.rtime
-
-
 _TRACE_SUFFIX = ".trace.json.gz"
 
 
@@ -112,7 +106,6 @@ def trace(log_dir: str):
     ``log_dir/<time in ns>_<pid>.trace.json.gz``; open it in chrome://tracing or
     Perfetto.  The caller synchronizes the device before leaving the
     context, or kernels still in flight are missing from the trace."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(log_dir, exist_ok=True)
@@ -212,15 +205,3 @@ def trace_comm_share(log_dir: str) -> dict:
             by_op[coll] = by_op.get(coll, 0.0) + e["dur"]
     return {"collective_us": coll_us, "op_us": op_us,
             "share": coll_us / op_us if op_us else 0.0, "by_op": by_op}
-
-
-def profile_comm_share(run_fn, state, log_dir: str) -> dict:
-    """Trace one call of a runner (``engine.run``'s, or a rank's from
-    ``parallel``) on ``state`` and return its measured collective share
-    (see ``trace_comm_share``)."""
-    import torch
-    with trace(log_dir):
-        out = run_fn(state)
-        if out.x.device.type == "cuda":
-            torch.cuda.synchronize(out.x.device)
-    return trace_comm_share(log_dir)

@@ -1,7 +1,8 @@
 """The port's diagnostics against the JAX package: state validation and the
-per-field printers, ``--check-nans``, ``StepTimer``, ``--trace``, recorded
-trajectories and the energy diagnostic.  Inputs are the glibc init or numpy
-arrays from a seed, handed to both packages.
+per-field printers, ``--check-nans``, ``--trace`` and the program's spans
+(``utils.timing.span``), recorded trajectories and the energy diagnostic.
+Inputs are the glibc init or numpy arrays from a seed, handed to both
+packages.
 """
 
 import glob
@@ -20,10 +21,10 @@ from parallel_nbody_tpu.config import SimConfig as JaxConfig
 from parallel_nbody_tpu.models import engine as jengine
 from parallel_nbody_tpu.state import State as JState
 from parallel_nbody_tpu.state import init_state as jax_init_state
-from parallel_nbody_tpu.utils.timing import StepTimer as JaxStepTimer
 from parallel_nbody_tpu_torch import cli
 from parallel_nbody_tpu_torch.config import SimConfig
 from parallel_nbody_tpu_torch.models import engine
+from parallel_nbody_tpu_torch.ops.render import render_frame
 from parallel_nbody_tpu_torch.state import State, init_state
 from parallel_nbody_tpu_torch.utils import checkpoint as ckpt
 from parallel_nbody_tpu_torch.utils import debug, ppm, timing
@@ -205,23 +206,8 @@ def test_cli_check_nans_poisoned_state_exits_1_naming_field(
 
 
 # ---------------------------------------------------------------------------
-# StepTimer and traces
+# Spans and traces
 # ---------------------------------------------------------------------------
-
-def test_step_timer_accounting():
-    with timing.StepTimer(128, 10) as t:
-        pass
-    assert t.rtime >= 0
-    t.rtime = 0.5
-    j = JaxStepTimer(128, 10)
-    j.rtime = 0.5
-    # 10 steps of N=128: flop model fixed by the reference (nbody-seq.c:367).
-    assert t.gflops * t.rtime * 1e9 == pytest.approx(
-        10 * (20 * (128 * 127 // 2) + 18 * 128 + 4 * 128))
-    assert t.gflops == j.gflops
-    assert t.interactions_per_sec == j.interactions_per_sec == \
-        10 * 128 * 127 // 2 / 0.5
-
 
 def _events(log_dir):
     (path,) = glob.glob(os.path.join(log_dir, "**", "*.trace.json.gz"),
@@ -242,6 +228,115 @@ def test_profiler_trace_writes_events(tmp_path):
     # Leaves only: the sum stays below the sum over every operator, which
     # counts nested ones twice, and within the traced wall time.
     assert share["op_us"] < sum(e["dur"] for e in ops)
+
+
+def _spans(events):
+    """The program's spans in a trace: name -> [(start, end)] in us."""
+    out = {}
+    for e in events:
+        if e.get("cat") == "user_annotation" and \
+                e["name"].startswith("nbody."):
+            out.setdefault(e["name"], []).append((e["ts"],
+                                                  e["ts"] + e["dur"]))
+    return out
+
+
+def _inside(span, spans):
+    """How many of ``spans`` hold ``span`` whole."""
+    return sum(a <= span[0] and span[1] <= b for a, b in spans)
+
+
+KERNEL_CFG = SimConfig(force_mode="fast", dtype="float32", kernel="cuda")
+
+
+@pytest.mark.parametrize("path", ["cuda", "dense", "hosted"])
+def test_trace_holds_the_programs_spans(path, tmp_path):
+    """Three steps: three ``nbody.step`` spans, each holding one
+    ``nbody.forces`` and one ``nbody.integrate`` (and on the kernel path
+    one ``nbody.coincident``) that do not overlap; one ``nbody.render`` a
+    frame, outside every step."""
+    n = 64
+    cfg = CFG if path == "dense" else KERNEL_CFG
+    st = init_state(n, cfg)
+    log_dir = str(tmp_path / "trace")
+    with timing.trace(log_dir):
+        if path == "hosted":
+            step_fn, _ = engine.make_hosted_row_step(cfg, n)
+            for _ in range(3):
+                st = step_fn(st)
+        else:
+            st = engine.run(cfg, st, 3)
+        render_frame(cfg, st.x, st.y, st.radius, n)
+    spans = _spans(_events(log_dir))
+    children = ["nbody.forces", "nbody.integrate"]
+    if path != "dense":
+        children.insert(0, "nbody.coincident")
+    assert sorted(spans) == sorted(children + ["nbody.step", "nbody.render"])
+    assert len(spans["nbody.step"]) == 3 and len(spans["nbody.render"]) == 1
+    for step in spans["nbody.step"]:
+        mine = sorted(s for name in children for s in spans[name]
+                      if _inside(s, [step]))
+        assert len(mine) == len(children)
+        assert all(a[1] <= b[0] for a, b in zip(mine, mine[1:]))
+    for name in children:
+        assert len(spans[name]) == 3
+        assert all(_inside(s, spans["nbody.step"]) == 1 for s in spans[name])
+    assert _inside(spans["nbody.render"][0], spans["nbody.step"]) == 0
+
+
+def test_no_profiler_builds_no_span(monkeypatch):
+    """With no profiler recording, a step and a frame construct no
+    ``record_function``: ``span`` hands out one shared no-op context."""
+    def refuse(name):
+        raise AssertionError("record_function(%r) with no profiler" % name)
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    for cfg in (KERNEL_CFG, CFG):
+        st = engine.run(cfg, init_state(32, cfg), 2)
+        render_frame(cfg, st.x, st.y, st.radius, 32)
+    assert timing.span("nbody.step") is timing.span("nbody.render")
+
+
+def test_span_gate_opens_under_profile_start(tmp_path):
+    """A profiler started by ``profile(...).start()``, as the benchmark
+    starts one, opens the gate; its trace holds the span; after ``stop``
+    the gate is shut again."""
+    from torch.profiler import ProfilerActivity, profile
+    prof = profile(activities=[ProfilerActivity.CPU])
+    prof.start()
+    try:
+        on = timing.span("nbody.test")
+        with on:
+            torch.ones(8).sum()
+    finally:
+        prof.stop()
+    assert isinstance(on, torch.profiler.record_function)
+    assert timing.span("nbody.test") is timing.span("nbody.step")
+    path = str(tmp_path / "t.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    assert len(_spans(events)["nbody.test"]) == 1
+
+
+def test_cli_trace_holds_step_and_frame_spans(arena, tmp_path, capsys,
+                                              monkeypatch):
+    """``--trace=DIR`` with frames: one ``nbody.step`` a step, and each
+    frame's render, copy to the host and write in that order, outside the
+    steps."""
+    d = str(tmp_path / "trace")
+    rc, out, err = _main(cli.main, ["32", "1", arena, "5", "--trace=" + d],
+                         capsys, monkeypatch)
+    assert rc == 0, err
+    spans = _spans(_events(d))
+    assert len(spans["nbody.step"]) == 5
+    frames = list(zip(spans["nbody.render"], spans["nbody.frame.copy"],
+                      spans["nbody.frame.write"]))
+    assert len(frames) == len(spans["nbody.frame.write"]) >= 1
+    for render, copy, write in frames:
+        assert render[1] <= copy[0] and copy[1] <= write[0]
+        assert _inside(render, spans["nbody.step"]) == 0
 
 
 def _write_trace(path, events):

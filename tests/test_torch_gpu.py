@@ -676,6 +676,60 @@ def test_cli_trace_on_card_holds_device_kernels(dev, arena, tmp_path, capsys,
     assert len(k1) == 10 and all(e["dur"] > 0 for e in k1)
 
 
+def test_step_spans_on_card_hold_every_launch(dev, tmp_path):
+    """20 steps at N=65536 in fp32 through K1 under ``utils.timing.trace``:
+    every device operation launched under ``nbody.step`` was launched under
+    exactly one of its three children (so the step's own device time is 0),
+    K1 under ``nbody.forces``, and every step launches as many operations as
+    the others."""
+    import bisect
+    import glob
+    import gzip
+    import json
+    from parallel_nbody_tpu_torch.utils import timing
+    cfg = SimConfig(force_mode="fast", dtype="float32", kernel="cuda")
+    st = run(cfg, init_state(65536, cfg, device=dev), 1)
+    torch.cuda.synchronize()
+    d = str(tmp_path / "trace")
+    with timing.trace(d):
+        run(cfg, st, 20)
+        torch.cuda.synchronize()
+    (path,) = glob.glob(d + "/*.trace.json.gz")
+    with gzip.open(path, "rt") as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    spans = [e for e in events if e.get("cat") == "user_annotation"
+             and e["name"].startswith("nbody.")]
+    launches = {e["args"]["correlation"]: e for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    steps = sorted((e["ts"], e["ts"] + e["dur"], e["tid"]) for e in spans
+                   if e["name"] == "nbody.step")
+    assert len(steps) == 20
+    children = ("nbody.coincident", "nbody.forces", "nbody.integrate")
+    per_step = [0] * len(steps)
+    k1 = 0
+    for op in events:
+        if op.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        launch = launches.get(op.get("args", {}).get("correlation"))
+        if launch is None:
+            continue
+        t, tid = launch["ts"], launch["tid"]
+        i = bisect.bisect_right([s[0] for s in steps], t) - 1
+        if i < 0 or not (t < steps[i][1] and tid == steps[i][2]):
+            continue
+        per_step[i] += 1
+        under = [e["name"] for e in spans if e["name"] in children
+                 and e["tid"] == tid and e["ts"] <= t < e["ts"] + e["dur"]]
+        assert len(under) == 1, (op["name"], under)
+        if "block_forces_kernel" in op["name"]:
+            assert under == ["nbody.forces"]
+            k1 += 1
+    assert k1 == 20
+    assert per_step[0] > 1 and len(set(per_step)) == 1, per_step
+
+
 def test_diagnostics_on_card_match_cpu(dev):
     """validate_state, total_energy and run_trajectory on the card against
     the CPU in fp64 (dense fast forces: the same terms, summed in another

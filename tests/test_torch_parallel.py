@@ -493,13 +493,14 @@ def test_world_of_one_is_engine_run(program, world_of_one):
 
 def test_comm_timing_and_trace_share(world_of_one, tmp_path):
     """measure_comm_fraction times each program's collectives alone;
-    profile_comm_share reads the gathers of a traced all-gather run as
+    trace_comm_share reads the gathers of a traced all-gather run as
     collective time (gloo operations), and finds none in a ring of one
     rank, which makes no hop."""
     from parallel_nbody_tpu_torch.parallel.mesh import make_mesh
     from parallel_nbody_tpu_torch.state import init_state
     from parallel_nbody_tpu_torch.utils.timing import (measure_comm_fraction,
-                                                       profile_comm_share)
+                                                       trace,
+                                                       trace_comm_share)
     cfg = SimConfig(force_mode="fast", dtype="float32", kernel="cuda")
     st = init_state(256, cfg)
     for comm, mesh in (("allgather", make_mesh(1)), ("ring", make_mesh(1)),
@@ -507,10 +508,16 @@ def test_comm_timing_and_trace_share(world_of_one, tmp_path):
         t = measure_comm_fraction(cfg, mesh, st, comm, iters=3)
         assert 0 <= t < 1, comm
     runners = _world_runners(cfg, 2)
-    gathered = profile_comm_share(runners["allgather"], st,
-                                  str(tmp_path / "ag"))
+
+    def share(program):
+        log_dir = str(tmp_path / program)
+        with trace(log_dir):
+            runners[program](st)
+        return trace_comm_share(log_dir)
+
+    gathered = share("allgather")
     assert gathered["collective_us"] > 0 and 0 < gathered["share"] < 1
     assert any("gloo" in k or "all_gather" in k or "allgather" in k
                for k in gathered["by_op"])
-    alone = profile_comm_share(runners["ring"], st, str(tmp_path / "ring"))
+    alone = share("ring")
     assert alone["collective_us"] == 0 and alone["op_us"] > 0

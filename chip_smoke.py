@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA force kernels from csrc/ (nvcc; K1 ``forces.cu`` and K2
-``forces_streamed.cu``), holds each against its plain PyTorch version on the
-card, drives the CLI's two single-device paths through the kernels (N=65536
+Builds the CUDA force kernels from csrc/ (nvcc; K1 ``forces.cu``, the
+symmetric pass ``forces_symmetric.cu`` and K2 ``forces_streamed.cu``), holds
+each against its plain PyTorch version on the card, drives the CLI's two single-device paths through the kernels (N=65536
 for 100 steps through K1; N=262144 for 20 steps through K2 in fp32,
 fp32 ``--accum=compensated`` and bf16), checks the printed state of a small
 run against the CPU and two full-width steps against the plain version, and
@@ -20,8 +20,14 @@ K1 and K2 add the coincident kick through the TPU kernel's dx bias,
 segmented by tile (csrc/pairs.cuh): both are also held against their plain
 versions on blocks whose offsets are not multiples of 128, with coincident
 pairs placed in a tile below, a tile above and both overlapping tiles.
+The symmetric pass (K1's square fp32 case, each unordered pair once; the
+fp32 main path to 131072 bodies) is held to its plain version at N=384,
+4097, 65536 and 131072, two passes bit-equal, the kick of each placed pair
+bit-equal to K1's and far padding exactly 0 (phase_symmetric), and timed
+beside K1 on the same bodies at 65536 and 131072.
 The SASS census tells K1's and K2's three fp32 pair loops apart (unbiased,
-constant bias, per-pair bias), checks that none holds a per-pair branch or
+constant bias, per-pair bias), and the symmetric kernel's two loops from its
+diagonal's three, checks that none holds a per-pair branch or
 the rsqrtf wrapper, checks the probe loops (no FSETP, a pass of R rows,
 every column load kept), and gives each kernel's issue bound.
 
@@ -54,9 +60,9 @@ dense trig path prints that fixture's bytes (tests/test_torch_gpu.py).
 
 The distributed programs (parallel_nbody_tpu_torch/parallel/):
   - A. World size 1 on NCCL (a process group of this process alone): the
-    all-gather and ring programs and the 1x1 grid, N=65536 fp32 through K1
-    for 100 steps from the CLI's glibc init, each bit-equal to engine.run
-    with K1 launched once a step, their unordered pairs/s beside
+    all-gather and ring programs and the 1x1 grid, N=65536 fp32 through the
+    symmetric pass for 100 steps from the CLI's glibc init, each bit-equal
+    to engine.run with one force pass a step, their unordered pairs/s beside
     engine.run's; fp64 trig at N=1024, the printout byte-equal.
   - B. The ranks emulated on the card (parallel/emulate.py): for 2 and 4
     all-gather and ring ranks and the grids 2x2, 1x4 and 4x1 at N=65536,
@@ -176,17 +182,23 @@ Tolerances (each comparison uses the plain version's max |F| as the scale):
     operation on both devices: subtraction, multiplication, addition and
     ``torch.sqrt`` are correctly rounded on both, and eager ops are separate
     kernels, so nothing is contracted into an FMA.
+  - the symmetric pass vs its plain version, fp32: 2e-6 * max|F| (measured
+    1.8-2.1e-7 on the H100 from 384 to 131072 bodies): the same terms, each
+    tile pair's sums and then each body's tile slots in tile order, where
+    the kernel sums a 128-column block of a row's terms one by one and a
+    column's terms by rows, lanes and warps.
   - frames, checkpoints and resume leave the printed state byte-equal: K1
-    sums each row in a fixed order with no atomics, and the .npz holds the
+    and the symmetric pass sum in a fixed order with no atomics, and the .npz holds the
     fp32 state exactly (as float64).
   - world size 1 (A): bit-equal.  The programs make engine.step's call (the
-    same offsets and shapes), the tagged flag equals any_coincident's, the
+    same offsets and shapes, and one block handed as the same tensors, so
+    the symmetric pass), the tagged flag equals any_coincident's, the
     ring makes no hop and the all-reduce is over one rank.
   - emulated ranks (B): each rank's kernel call against its plain version
     as above (2e-6 * max|F|); the ranks together against the single-device
-    pass at the same bound: the all-gather ranks sum each row as the single
-    pass does (bit-equal), the ring and the grid fold the column blocks'
-    partials in another order (measured up to 4.6e-7 of max|F| at P=4).
+    pass at the same bound: that pass is the symmetric one, the ranks' blocks
+    go through K1 (a ring rank's hop 0 and a column-1 grid's diagonal cells
+    through the symmetric pass), so the orders differ.
   - reference replay: none; stdout byte-equal to the reference binary's,
     but for the one pinned line of REPLAY_KNOWN_MISS, which must differ
     exactly as recorded or not at all.
@@ -227,6 +239,10 @@ KICK = 38.5 / 9.0  # G * 5 * 7 / (1.5 + 1.5)^2
 TOL = {torch.float32: 2e-6, torch.float64: 1e-12}  # K1, K2 (the docstring)
 TOL_PROBE = 2e-5  # fp32 probe variants up to N=4096 (see the docstring)
 MAIN_N, MAIN_STEPS = 65536, 100  # K1's path
+# The symmetric pass (K1's square fp32 case): sizes held to its plain
+# version, and the top of K1's range, timed beside MAIN_N.
+SYM_NS = (384, 4097, MAIN_N, 131072)
+SYM_BIG_N = 131072
 BIG_N, BIG_STEPS = 262144, 20  # K2's path: above cuda_step.STREAMED_ABOVE
 BIG_RUNS = (("fp32", []), ("fp32 compensated", ["--accum=compensated"]),
             ("bf16", ["--dtype=bfloat16"]))
@@ -370,6 +386,15 @@ def _probe_layout(lib):
               % (name, count, spill))
 
 
+def _kernel(kernel):
+    """The launcher of K1 or K2: K1 is ``block_forces_one_sided``, which
+    launches it on square fp32 blocks too (``block_forces`` hands those to
+    the symmetric pass, held in phase_symmetric)."""
+    from parallel_nbody_tpu_torch.ops import cuda_step
+    return getattr(cuda_step, "block_forces_one_sided" if kernel == K1
+                   else kernel)
+
+
 def _compare(label, rows, cols, dtype, biased, row_g0=0, col_g0=0,
              kernel=K1, tol=None, **kw):
     """Kernel vs plain version on the card; returns (max |error|, ms of the
@@ -377,7 +402,7 @@ def _compare(label, rows, cols, dtype, biased, row_g0=0, col_g0=0,
     from parallel_nbody_tpu_torch.ops import cuda_step
     cfg = _cfg(_name(dtype))
     call = dict(row_g0=row_g0, col_g0=col_g0, biased=biased, **kw)
-    got = getattr(cuda_step, kernel)(cfg, *rows, *cols, **call)
+    got = _kernel(kernel)(cfg, *rows, *cols, **call)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -402,12 +427,11 @@ def _compare(label, rows, cols, dtype, biased, row_g0=0, col_g0=0,
 
 
 def _two_body_kick(kernel, dtype, dev, **kw):
-    from parallel_nbody_tpu_torch.ops import cuda_step
     pair = [torch.tensor(v, dtype=dtype, device=dev)
             for v in ([100.0, 100.0], [200.0, 200.0], [5.0, 7.0],
                       [1.5, 1.5])]
-    xf, yf = getattr(cuda_step, kernel)(_cfg(_name(dtype)), *pair, *pair,
-                                        biased=True, **kw)
+    xf, yf = _kernel(kernel)(_cfg(_name(dtype)), *pair, *pair, biased=True,
+                             **kw)
     np.testing.assert_allclose(xf.cpu().numpy(), [KICK, -KICK], rtol=1e-6)
     np.testing.assert_array_equal(yf.cpu().numpy(), [0.0, 0.0])
     print("compare %-2s two-body kick %s ok"
@@ -615,26 +639,51 @@ def _compare_tables(label, got, want, pos_tol, force_rel):
                                  % (label, name, diff))
 
 
+class _Passes(int):
+    """block_forces's force passes since its counts were zeroed (an int,
+    which the phases hold to their steps), with ``symmetric``, those that
+    took the symmetric pass, and ``k1``, those that launched K1."""
+
+    def __new__(cls, passes, symmetric):
+        self = super().__new__(cls, passes)
+        self.symmetric = symmetric
+        self.k1 = passes - symmetric
+        return self
+
+
+def _zero_passes():
+    from parallel_nbody_tpu_torch.ops import cuda_step
+    cuda_step.block_forces.launches = 0
+    cuda_step.block_forces.symmetric_launches = 0
+
+
+def _passes():
+    from parallel_nbody_tpu_torch.ops import cuda_step
+    return _Passes(cuda_step.block_forces.launches,
+                   cuda_step.block_forces.symmetric_launches)
+
+
 def _xps_run(n, steps, extra, arena):
     """One ``--run-xps`` CLI run on the card with both kernels' counts set
-    to 0 just before it; returns (K1 launches, K2 launches, RTIME)."""
+    to 0 just before it; returns (block_forces's passes, K2 launches,
+    RTIME)."""
     from parallel_nbody_tpu_torch.ops import cuda_step
     from parallel_nbody_tpu_torch.utils.output import pair_interactions
     argv = [str(n), "0", arena, str(steps), "--no-clamp", "--pallas",
             "--run-xps"] + extra
-    cuda_step.block_forces.launches = 0
+    _zero_passes()
     cuda_step.block_forces_streamed.launches = 0
     out, err = _cli(argv, "cuda")
-    k1 = cuda_step.block_forces.launches
+    k1 = _passes()
     k2 = cuda_step.block_forces_streamed.launches
     row = re.fullmatch(r"%d,(\d+\.\d{3}), (\d+\.\d{2})\n" % n, out)
     if row is None:
         raise AssertionError("malformed CSV row: %r" % out)
     rtime = float(row.group(1))
     print("main path: %s" % " ".join(argv))
-    print("main path: launches K1 %d K2 %d, RTIME %.3f s, %.6e unordered "
-          "pairs/s, GFLOPS (reference model) %s"
-          % (k1, k2, rtime, pair_interactions(n, steps) / rtime,
+    print("main path: launches K1 %d symmetric %d K2 %d, RTIME %.3f s, "
+          "%.6e unordered pairs/s, GFLOPS (reference model) %s"
+          % (k1.k1, k1.symmetric, k2, rtime, pair_interactions(n, steps) / rtime,
              row.group(2)))
     sys.stderr.write(err)
     return k1, k2, rtime
@@ -642,9 +691,10 @@ def _xps_run(n, steps, extra, arena):
 
 def phase_main_path(arena):
     k1, k2, rtime = _xps_run(MAIN_N, MAIN_STEPS, [], arena)
-    if k1 < MAIN_STEPS or k2 != 0:
-        raise AssertionError("N=%d path launched K1 %d and K2 %d times"
-                             % (MAIN_N, k1, k2))
+    if k1 < MAIN_STEPS or k2 != 0 or k1.k1 != 0:
+        raise AssertionError("N=%d path launched K1 %d, the symmetric pass "
+                             "%d and K2 %d times"
+                             % (MAIN_N, k1.k1, k1.symmetric, k2))
 
     small = ["1024", "0", arena, "10", "--pallas"]
     card, _ = _cli(small, "cuda")
@@ -726,6 +776,74 @@ def phase_sabotage(dev):
                          "cannot fail")
 
 
+def phase_symmetric(dev):
+    """The symmetric pass (csrc/forces_symmetric.cu, K1's square fp32 case)
+    against its plain version at SYM_NS from the glibc init, both flags,
+    each a symmetric launch and bit-equal to a second pass; the kick of
+    each KICK_PLACEMENTS pair, bit-equal to the one-sided kernel's
+    (``block_forces_one_sided``); far padding exactly 0.  Returns
+    (max |error| / max|F| at MAIN_N, the plain version's ms there and at
+    SYM_BIG_N)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    from torch_cases import KICK_PLACEMENTS, kick_case
+    from parallel_nbody_tpu_torch.ops import cuda_step
+    from parallel_nbody_tpu_torch.state import init_state, pad_state
+    cfg = _cfg("float32")
+    worst, plain_ms = {}, {}
+    for n in SYM_NS:
+        b = _bodies(init_state(n, cfg, device=dev))
+        for biased in (True, False):
+            flag = torch.tensor(biased, device=dev)
+            before = cuda_step.block_forces.symmetric_launches
+            got = cuda_step.block_forces(cfg, *b, *b, biased=flag)
+            again = cuda_step.block_forces(cfg, *b, *b, biased=flag)
+            torch.cuda.synchronize()
+            if cuda_step.block_forces.symmetric_launches != before + 2:
+                raise AssertionError("symmetric N=%d: not the symmetric "
+                                     "pass" % n)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            want = cuda_step.block_forces_symmetric_reference(cfg, *b,
+                                                              biased=flag)
+            end.record()
+            torch.cuda.synchronize()
+            plain_ms[n] = start.elapsed_time(end)
+            scale = max(float(w.abs().max()) for w in want)
+            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            equal = all(torch.equal(g, a) for g, a in zip(got, again))
+            print("symmetric N=%d biased=%-5s vs its plain version max|err| "
+                  "%.6e /max|F| %.6e; two passes bit-equal %s; plain %.3f ms"
+                  % (n, biased, err, err / scale, equal, plain_ms[n]))
+            if not (err <= TOL[torch.float32] * scale and equal):
+                raise AssertionError("symmetric N=%d biased=%s: max|err| "
+                                     "%.6e of %.6e, bit-equal %s"
+                                     % (n, biased, err, scale, equal))
+            worst[n] = max(worst.get(n, 0.0), err / scale)
+    for name in sorted(KICK_PLACEMENTS):
+        rows, _, r0, _, (ia, ib) = kick_case(name)
+        b = [torch.tensor(a, dtype=torch.float32, device=dev) for a in rows]
+        got = cuda_step.block_forces(cfg, *b, *b, row_g0=r0, col_g0=r0,
+                                     biased=True)
+        want = cuda_step.block_forces_one_sided(cfg, *b, *b, row_g0=r0,
+                                                col_g0=r0, biased=True)
+        xf = got[0].cpu()
+        if not (all(torch.equal(g, w) for g, w in zip(got, want))
+                and float(xf[ia]) > 0 > float(xf[ib])):
+            raise AssertionError("symmetric kick %s: %r, %r" % (
+                name, float(xf[ia]), float(xf[ib])))
+        print("symmetric kick %s: %.9g, %.9g, bit-equal to K1"
+              % (name, float(xf[ia]), float(xf[ib])))
+    padded, _ = pad_state(init_state(1000, cfg, device=dev), 1152)
+    b = _bodies(padded)
+    xf, yf = cuda_step.block_forces(cfg, *b, *b, biased=True)
+    if bool(xf[1000:].any()) or bool(yf[1000:].any()):
+        raise AssertionError("symmetric: far padding feels a force")
+    print("symmetric far padding: exactly 0")
+    return worst[MAIN_N], plain_ms[MAIN_N], plain_ms[SYM_BIG_N]
+
+
 def _pixel_report(bodies, j, i):
     """Why pixel (row j, column i) differs between the devices: every body
     whose hit test differs there, with both distances and the threshold."""
@@ -804,15 +922,16 @@ def _rtime(err):
 
 def _k1_run(argv, env=None):
     """One CLI run on the card with both kernels' counts set to 0 just
-    before it; returns (stdout, stderr, K1 launches).  K2 must not run."""
+    before it; returns (stdout, stderr, block_forces's passes).  K2 must
+    not run."""
     from parallel_nbody_tpu_torch.ops import cuda_step
-    cuda_step.block_forces.launches = 0
+    _zero_passes()
     cuda_step.block_forces_streamed.launches = 0
     with mock.patch.dict(os.environ, env or {}):
         out, err = _cli(argv, "cuda")
     if cuda_step.block_forces_streamed.launches:
         raise AssertionError("%s launched K2" % " ".join(argv))
-    return out, err, cuda_step.block_forces.launches
+    return out, err, _passes()
 
 
 def phase_frame_path(tmp, render_ms):
@@ -850,11 +969,12 @@ def phase_frame_path(tmp, render_ms):
     print("frame path: %s" % " ".join(argv))
     print("frame path: %d frames in RTIME %.3f s (needs %d); RTIME without "
           "frames %.3f s; frame work (RTIME difference) %.1f%% of RTIME, "
-          "%d frames x %.3f ms of render_frame %.1f%%; K1 launches %d with "
-          "frames, %d without; last frame: %s; %d pixels lit in the PPM"
+          "%d frames x %.3f ms of render_frame %.1f%%; force passes %d with "
+          "frames (symmetric %d), %d without; last frame: %s; %d pixels "
+          "lit in the PPM"
           % (frames, rtime, need, rtime0, 100 * (rtime - rtime0) / rtime,
              frames, render_ms, 100 * frames * render_ms / 1e3 / rtime, k1,
-             k1_plain, lines[-1] if lines else "none", lit))
+             k1.symmetric, k1_plain, lines[-1] if lines else "none", lit))
     if frames < need:
         raise AssertionError("frame path: %d frames in %.3f s, needs %d"
                              % (frames, rtime, need))
@@ -948,12 +1068,13 @@ def phase_checkpoint(tmp, arena, dev):
 
 
 def phase_diagnostics(tmp, arena):
-    """``--check-nans`` and ``--trace`` at N=DIAG_N on the card through K1:
+    """``--check-nans`` and ``--trace`` at N=DIAG_N on the card in fp32:
     the validation line of a clean run, whose stdout is the unchecked run's;
     a checkpoint with a NaN planted in ``xv`` exits 1 naming the field when
     no step is left to run, and raises FloatingPointError naming the field
     and the step when one is; the trace directory holds one trace with
-    device kernels of non-zero time, K1's among them, and the ``Trace:``
+    device kernels of non-zero time, the force pass's among them (fp32: the
+    symmetric kernel), and the ``Trace:``
     line reports a 0.00% collective share."""
     import gzip
     base = [str(DIAG_N), "0", arena]
@@ -1002,11 +1123,13 @@ def phase_diagnostics(tmp, arena):
         events = json.load(f)["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
     device_us = sum(e["dur"] for e in kernels)
+    # The fp32 pass of one block against itself: the symmetric kernel.
     k1_us = sum(e["dur"] for e in kernels
-                if "block_forces_kernel" in e["name"])
+                if "block_forces_symmetric_kernel" in e["name"])
     print("--trace N=%d x %d steps: %s; %d device kernel events, %.3f ms, "
-          "K1 %.3f ms of it" % (DIAG_N, DIAG_STEPS, line[0], len(kernels),
-                                device_us / 1e3, k1_us / 1e3))
+          "the symmetric force kernel %.3f ms of it"
+          % (DIAG_N, DIAG_STEPS, line[0], len(kernels), device_us / 1e3,
+             k1_us / 1e3))
     if not device_us > 0 or not k1_us > 0:
         raise AssertionError("--trace: the trace holds no device time")
 
@@ -1234,15 +1357,14 @@ def phase_cpu_ranks(futures, arena, tmp):
 
 def _engine_ref(cfg, st, steps):
     """engine.run from ``st`` with the counts set to 0 just before it:
-    (state, seconds, K1 launches)."""
+    (state, seconds, block_forces's passes)."""
     from parallel_nbody_tpu_torch.models.engine import run
-    from parallel_nbody_tpu_torch.ops import cuda_step
-    cuda_step.block_forces.launches = 0
+    _zero_passes()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = run(cfg, st, steps)
     torch.cuda.synchronize()
-    return out, time.perf_counter() - t0, cuda_step.block_forces.launches
+    return out, time.perf_counter() - t0, _passes()
 
 
 def _world_runners(cfg, steps):
@@ -1288,21 +1410,22 @@ def phase_world_of_one(dev, tmp):
         rates = {"engine.run": pairs / t_engine}
         launches = {}
         for name, runner in runners.items():
-            cuda_step.block_forces.launches = 0
+            _zero_passes()
             cuda_step.block_forces_streamed.launches = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             got = runner(st)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
-            launches[name] = cuda_step.block_forces.launches
+            launches[name] = _passes()
             rates[name] = pairs / seconds
             equal = all(torch.equal(g, w) for g, w in zip(got, want))
             print("world of one (nccl) %-10s N=%d x %d steps: %.6f s, "
-                  "%.6e unordered pairs/s (engine.run %.6e), K1 launches "
-                  "%d, K2 %d, bit-equal to engine.run: %s"
+                  "%.6e unordered pairs/s (engine.run %.6e), force passes "
+                  "%d (symmetric %d), K2 %d, bit-equal to engine.run: %s"
                   % (name, DIST_N, DIST_STEPS, seconds, rates[name],
                      rates["engine.run"], launches[name],
+                     launches[name].symmetric,
                      cuda_step.block_forces_streamed.launches, equal))
             if not equal or launches[name] != DIST_STEPS or \
                     cuda_step.block_forces_streamed.launches:
@@ -1428,6 +1551,7 @@ def _check_layout(cfg, st, layout, whole, whole_ms, kernel=K1):
     from parallel_nbody_tpu_torch.parallel import sharded_step
     progs = emulate.rank_programs(cfg, st, layout)
     counter = getattr(cuda_step, kernel)
+    _zero_passes()
     counter.launches = 0
     auto = sharded_step.block_forces_auto  # what the ranks call now
     calls = [[] for _ in progs]  # each rank's kernel calls, to replay
@@ -1438,7 +1562,7 @@ def _check_layout(cfg, st, layout, whole, whole_ms, kernel=K1):
             return auto(cfg, *args, **kw)
         with _ranks_through(record):
             got.append(prog())
-    launches = counter.launches
+    launches = _passes() if kernel == K1 else counter.launches
     with _ranks_through(_plain_auto):
         want = [prog() for prog in progs]
     torch.cuda.synchronize()
@@ -1608,7 +1732,33 @@ def _time_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
+def _symmetric_times(cfg, b, off, on, label):
+    """The symmetric pass (kernel and fold) beside K1's one-sided kernel on
+    the same bodies (``block_forces_one_sided``), both flags, and the fold
+    alone."""
+    from parallel_nbody_tpu_torch.ops import cuda_step
+    n = b[0].shape[0]
+    ws = torch.zeros((-(-n // cuda_step.SYMMETRIC_TILE), 2, n),
+                     dtype=torch.float32, device=b[0].device)
+    times = {
+        label + "kernel": _time_ms(lambda: cuda_step.block_forces_one_sided(
+            cfg, *b, *b, biased=off), 20),
+        label + "kernel_biased": _time_ms(
+            lambda: cuda_step.block_forces_one_sided(cfg, *b, *b, biased=on),
+            20),
+        label + "symmetric": _time_ms(lambda: cuda_step.block_forces(
+            cfg, *b, *b, biased=off), 20),
+        label + "symmetric_biased": _time_ms(lambda: cuda_step.block_forces(
+            cfg, *b, *b, biased=on), 20),
+        label + "symmetric_fold": _time_ms(lambda: cuda_step.band_fold(
+            cfg, ws, b[2]), 20),
+    }
+    return times
+
+
 def phase_timing(dev):
+    """K1 (one-sided) and the symmetric pass at MAIN_N and SYM_BIG_N, the
+    plain version, the flag, the step, and engine.run's rate."""
     from parallel_nbody_tpu_torch.models.engine import run, step
     from parallel_nbody_tpu_torch.ops import cuda_step
     from parallel_nbody_tpu_torch.state import init_state
@@ -1618,19 +1768,22 @@ def phase_timing(dev):
     b = _bodies(st)
     off = torch.zeros((), dtype=torch.bool, device=dev)
     on = torch.ones((), dtype=torch.bool, device=dev)
-    times = {
-        "kernel": _time_ms(lambda: cuda_step.block_forces(
-            cfg, *b, *b, biased=off), 20),
-        "kernel_biased": _time_ms(lambda: cuda_step.block_forces(
-            cfg, *b, *b, biased=on), 20),
+    times = _symmetric_times(cfg, b, off, on, "")
+    big = _symmetric_times(cfg, _bodies(init_state(SYM_BIG_N, cfg,
+                                                   device=dev)),
+                           off, on, "big_")
+    times.update({
         "plain": _time_ms(lambda: cuda_step.block_forces_reference(
             cfg, *b, *b, biased=off), 3, warmup=1),
         "any_coincident": _time_ms(lambda: cuda_step.any_coincident(
             st.x, st.y, st.mass), 20),
         "step": _time_ms(lambda: step(cfg, st), 20),
-    }
+    })
     for name, ms in times.items():
-        print("time N=%d fp32 %-15s %.6f ms" % (MAIN_N, name, ms))
+        print("time N=%d fp32 %-22s %.6f ms" % (MAIN_N, name, ms))
+    for name, ms in big.items():
+        print("time N=%d fp32 %-22s %.6f ms" % (SYM_BIG_N, name[4:], ms))
+    times.update(big)
     # The main path's loop, timed unrounded (the CLI prints RTIME to 1 ms).
     x0, y0 = st.x.clone(), st.y.clone()
     st = step(cfg, st)
@@ -1812,9 +1965,9 @@ def phase_probes(dev):
     big = _probe.inputs(PROBE_N, dev)
     off = torch.zeros((), dtype=torch.bool, device=dev)
     on = torch.ones((), dtype=torch.bool, device=dev)
-    k1 = {"unbiased": _time_ms(lambda: cuda_step.block_forces(
+    k1 = {"unbiased": _time_ms(lambda: cuda_step.block_forces_one_sided(
               cfg, *big, biased=off), 20),
-          "biased": _time_ms(lambda: cuda_step.block_forces(
+          "biased": _time_ms(lambda: cuda_step.block_forces_one_sided(
               cfg, *big, biased=on), 20)}
     print("time N=%d on the probes' inputs: K1 unbiased %.6f ms, K1 biased "
           "%.6f ms; P1 full %.3f ms (%.4f of K1 unbiased); P2 r2 %.3f ms "
@@ -1879,6 +2032,16 @@ def _sass_census():
                 if name.endswith("<fLb0>"):
                     ipp[name.split("<")[0], role] = \
                         sass_census.instr_per_pair(row)
+            if name.startswith(sass_census.SYMMETRIC_KERNEL):
+                # One rsqrt a pair, and no rsqrtf wrapper.
+                if not role or ops["FSETP"] or ops["MUFU"] != row[3]:
+                    raise AssertionError(
+                        "%s loop %x (%s): FSETP %d, MUFU %d for %d pairs"
+                        % (name, start, role or "no role", ops["FSETP"],
+                           ops["MUFU"], row[3]))
+                if name.endswith("<f>"):
+                    ipp[sass_census.SYMMETRIC_KERNEL, role] = \
+                        sass_census.instr_per_pair(row)
             if name.startswith(("roofline_probe", "bias_probe")):
                 faults = sass_census.probe_loop_faults(row)
                 if faults:
@@ -1889,6 +2052,9 @@ def _sass_census():
                     + (sass_census.instr_per_pair(row),)))
     missing = [(k, r) for k in sass_census.FORCE_KERNELS
                for r in sass_census.ROLES if (k, r) not in ipp]
+    missing += [(sass_census.SYMMETRIC_KERNEL, r)
+                for r in sass_census.ROLES + sass_census.SYMMETRIC_ROLES
+                if (sass_census.SYMMETRIC_KERNEL, r) not in ipp]
     missing += [(k, "probe") for k in (
         sass_census.probe_kernel_name(m.NAME, v)
         for m in (p1, p2) for v in m.VARIANTS)
@@ -1931,6 +2097,10 @@ def _issue_report(ipp, issue_hz, times, times_big, probe_events):
                         bound["constant bias"],
                         100 * bound["constant bias"] / t_on))
         print(line)
+    for n, label in ((MAIN_N, ""), (SYM_BIG_N, "big_")):
+        _symmetric_issue(ipp, issue_hz, n, times[label + "symmetric"],
+                         times[label + "symmetric_biased"],
+                         times[label + "symmetric_fold"])
     for (probe, variant), ms in probe_events.items():
         kernel = sass_census.probe_kernel_name(probe, variant)
         if (kernel, "probe") not in ipp:
@@ -1951,9 +2121,46 @@ def _issue_report(ipp, issue_hz, times, times_big, probe_events):
                  100 * bound / ms))
 
 
+def _symmetric_issue(ipp, issue_hz, n, t_off, t_on, t_fold):
+    """The symmetric pass's times at n beside its issue bound: the
+    unordered pairs of the tile pairs off the diagonal at the census count
+    of its symmetric loops, the diagonal tiles' ordered pairs at K1's loop
+    count (per-pair bias on the 128-wide blocks of the diagonal, constant
+    bias on the rest when biased)."""
+    from parallel_nbody_tpu_torch.benchmarks import sass_census
+    from parallel_nbody_tpu_torch.ops import cuda_step
+    tile = cuda_step.SYMMETRIC_TILE
+    nt = -(-n // tile)
+    off_pairs = nt * (nt - 1) // 2 * tile * tile
+    diag_pairs = nt * tile * tile
+    per_pair = cuda_step.TILE / tile  # of the diagonal's pairs
+    k = sass_census.SYMMETRIC_KERNEL
+    line = ("issue symmetric N=%d: unbiased %.6f ms, biased %.6f ms (fold "
+            "%.6f ms, %.2f%% of the unbiased pass); %d tile pairs, %d on "
+            "the diagonal" % (n, t_off, t_on, t_fold, 100 * t_fold / t_off,
+                              nt * (nt + 1) // 2, nt))
+    if ipp:
+        bound = {}
+        for biased, sym, diag in (
+                (False, ipp[k, "symmetric unbiased"], ipp[k, "unbiased"]),
+                (True, ipp[k, "symmetric constant bias"],
+                 ipp[k, "constant bias"] * (1 - per_pair)
+                 + ipp[k, "per-pair bias"] * per_pair)):
+            bound[biased] = ((off_pairs * sym + diag_pairs * diag) / WARP
+                             / issue_hz * 1e3)
+        line += ("; issue bound %.3f / %.3f instr per unordered pair: "
+                 "%.6f ms (%.1f%% of the issue rate, kernel and fold), "
+                 "biased %.6f ms (%.1f%%)"
+                 % (ipp[k, "symmetric unbiased"],
+                    ipp[k, "symmetric constant bias"], bound[False],
+                    100 * bound[False] / t_off, bound[True],
+                    100 * bound[True] / t_on))
+    print(line)
+
+
 def _reset_counts():
     from parallel_nbody_tpu_torch.ops import cuda_step
-    cuda_step.block_forces.launches = 0
+    _zero_passes()
     cuda_step.block_forces_streamed.launches = 0
     torch.cuda.synchronize()
     return time.perf_counter()
@@ -1965,9 +2172,10 @@ def _read_counts(label, t0, want_k1, want_k2):
     from parallel_nbody_tpu_torch.ops import cuda_step
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    k1 = cuda_step.block_forces.launches
+    k1 = _passes()
     k2 = cuda_step.block_forces_streamed.launches
-    print("%s: %.1f s, launches K1 %d K2 %d" % (label, seconds, k1, k2))
+    print("%s: %.1f s, launches K1 %d symmetric %d K2 %d"
+          % (label, seconds, k1.k1, k1.symmetric, k2))
     if (k1, k2) != (want_k1, want_k2):
         raise AssertionError("%s: launched K1 %d and K2 %d times, expected "
                              "%d and %d" % (label, k1, k2, want_k1, want_k2))
@@ -2488,6 +2696,7 @@ def main() -> int:
                      _cpu_ranks_tasks(cpu_arena, cpu_tmp).items()}
         phase_build()
         max_err_k1 = phase_compare(dev)
+        sym_err, sym_plain_ms, sym_plain_ms_big = phase_symmetric(dev)
         phase_sabotage(dev)
         max_err_k2, plain_ms_k2 = phase_compare_streamed(dev)
         phase_compensated(dev)
@@ -2547,11 +2756,7 @@ def main() -> int:
     print("chip_smoke: %.1f s" % (time.perf_counter() - t_start))
     source = "parallel_nbody_tpu_torch/csrc/%s"
     replaces = "parallel_nbody_tpu/ops/pallas_step.py:%d"
-    kernels = [{
-        "name": "block_forces_kernel",
-        "route": "cuda",
-        "source": source % "forces.cu",
-        "replaces": replaces % 249,
+    passes = {
         "launches": launches_k1,
         "launches_frame_path": launches_frames,
         "launches_resumed_run": launches_resumed,
@@ -2566,12 +2771,47 @@ def main() -> int:
         "launches_scaling": launches_scaling[0],
         "launches_k2_probes": launches_probes[0],
         "launches_reference_replay": launches_replay,
+    }
+
+    def split(part):
+        """block_forces's passes on each path: K1's launches or the
+        symmetric pass's (``_Passes``)."""
+        return {key: ({k: getattr(v, part) for k, v in n.items()}
+                      if isinstance(n, dict) else getattr(n, part))
+                for key, n in passes.items()}
+
+    kernels = [{
+        "name": "block_forces_kernel",
+        "route": "cuda",
+        "source": source % "forces.cu",
+        "replaces": replaces % 249,
+        **split("k1"),
         "reference_replay_known_misses": known,
         "max_abs_err_emulated_ranks": max_err_ranks,
         "max_abs_err": max_err_k1,
         "ms": times["kernel"],
         "ms_biased": times["kernel_biased"],
         "plain_ms": times["plain"],
+        "n": MAIN_N,
+    }, {
+        "name": "block_forces_symmetric_kernel+band_fold_kernel",
+        "route": "cuda",
+        "source": source % "forces_symmetric.cu",
+        "replaces": "none (K1's square fp32 case, each pair once)",
+        **split("symmetric"),
+        "max_err_rel": sym_err,
+        "ms": times["symmetric"],
+        "ms_biased": times["symmetric_biased"],
+        "ms_fold": times["symmetric_fold"],
+        "plain_ms": sym_plain_ms,
+        "ms_n%d" % SYM_BIG_N: times["big_symmetric"],
+        "ms_biased_n%d" % SYM_BIG_N: times["big_symmetric_biased"],
+        "k1_ms_n%d" % SYM_BIG_N: times["big_kernel"],
+        "plain_ms_n%d" % SYM_BIG_N: sym_plain_ms_big,
+        # The reference's work, as the benchmark's force_roofline_pct counts
+        # it: 20 FP32 operations per unordered pair.
+        "bound_ms": MAIN_N * (MAIN_N - 1) / 2 * 20 / PEAK_FP32_FLOPS * 1e3,
+        "bound_by": "operations",
         "n": MAIN_N,
     }, {
         "name": "band_partials_kernel+band_fold_kernel",
@@ -2608,7 +2848,8 @@ def main() -> int:
     )]
     for k in kernels:
         n = k.pop("n")
-        k["bound_ms"], k["bound_by"] = _bound(n, n)
+        if "bound_ms" not in k:
+            k["bound_ms"], k["bound_by"] = _bound(n, n)
         k["library_ms"] = None  # no one PyTorch call computes these
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

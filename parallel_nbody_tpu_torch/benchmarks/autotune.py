@@ -8,8 +8,11 @@ sweeps the Pallas kernels' tiles.  The port's tile is a compile-time 128
     65536 by default, ``cuda_step.STREAM_BAND``), swept over ``BANDS`` at
     N=262144 and 1048576;
   - the K1/K2 threshold (``cuda_step.STREAMED_ABOVE``, 131072, the TPU's
-    VMEM limit): K1 against K2 forced at each band of ``THRESHOLD_BANDS``
-    at N in {65536, 131072, 262144}.
+    VMEM limit): ``block_forces`` against K2 forced at each band of
+    ``THRESHOLD_BANDS`` at N in {65536, 131072, 262144}.  On the card
+    ``block_forces`` takes the symmetric pass to 131072 bodies
+    (``cuda_step.takes_symmetric``) and K1 past it; the row's ``kernel``
+    names the one that ran.
 
 Every case is one force pass over the ``random_state`` of N bodies (a
 ``torch.Generator`` seeded with 0) in fp32, unbiased (the variant a
@@ -32,7 +35,8 @@ import sys
 import torch
 
 from ..config import SimConfig
-from ..ops.cuda_step import block_forces, block_forces_streamed
+from ..ops.cuda_step import (block_forces, block_forces_streamed,
+                             takes_symmetric)
 from ..state import random_state
 from ..utils.device import tool_argv
 from ._tools import best_seconds, fingerprint, record_path, write_record
@@ -54,8 +58,17 @@ def _state(n, device):
     return cfg, (st.x, st.y, st.mass, st.radius)
 
 
+def _kernel(device, n, band) -> str:
+    """The kernel that ``time_pass`` times."""
+    if band is not None:
+        return "K2"
+    return ("symmetric" if device.type == "cuda" and takes_symmetric(
+        torch.float32, n, n, row_g0=0, col_g0=0, accum="plain") else "K1")
+
+
 def time_pass(device, n, band, reps) -> dict:
-    """One force pass at N=n: K1 when ``band`` is None, else K2 at
+    """One force pass at N=n: ``block_forces`` (K1, or on the card the
+    symmetric pass where it applies) when ``band`` is None, else K2 at
     ``band``."""
     cfg, b = _state(n, device)
     if band is None:
@@ -65,7 +78,7 @@ def time_pass(device, n, band, reps) -> dict:
     else:
         seconds = best_seconds(lambda: block_forces_streamed(
             cfg, *b, *b, band=band, biased=False), device, reps)
-    return {"n": n, "kernel": "K1" if band is None else "K2",
+    return {"n": n, "kernel": _kernel(device, n, band),
             "band": band, "ms": seconds * 1e3,
             "pairs_per_s": float(n) * n / seconds}
 
@@ -91,7 +104,8 @@ def sweep(device, reps: int = REPS, sizes=None, log=print) -> dict:
             row = time_pass(device, n, band, reps)
             out["threshold"].append(row)
             log("threshold N=%d %s: %.6f ms, %.6e pairs/s"
-                % (n, "K1" if band is None else "K2 band=%d" % band,
+                % (n, row["kernel"] if band is None
+                   else "K2 band=%d" % band,
                    row["ms"], row["pairs_per_s"]))
     best = {}
     for row in out["band"] + out["threshold"]:

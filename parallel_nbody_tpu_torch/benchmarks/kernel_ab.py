@@ -17,7 +17,8 @@ version since the kernels' redesign has (``block_forces``,
   - ``err_{K1,K2}_{u,b}``: each kernel against its plain version on 4000
     rows (``row_g0`` = 3) of 4999 columns (K2 in bands of 1024), unbiased
     and biased, as max|err| / max|F|;
-  - ``K1_{u,b}_ms``: K1 at N=65536, best of 30 by CUDA events;
+  - ``K1_{u,b}_ms``: ``block_forces`` at N=65536, best of 30 by CUDA
+    events: K1, or the symmetric pass in a version that has it;
   - ``K2_{u,b}_ms``: K2 at N=262144, best of 5 by CUDA events;
   - ``headline_pairs_per_s``: ``engine.run`` at N=65536 for 100 steps, best
     of 3 after a warm-up step, on the host clock between

@@ -8,7 +8,8 @@ step runs, on one card, at
     (``block_forces_streamed``), one rank's ring shape at N=1M;
   - ``128K_block_streamed``: 131072 x 131072 through K2, the block of one
     ring hop of an 8-rank run at N=1M;
-  - ``64K_square_resident``: 65536 x 65536 through K1 (``block_forces``).
+  - ``64K_square_resident``: 65536 x 65536 through ``block_forces``, on
+    the card the symmetric pass (K1's square fp32 case).
 
 Inputs are ``random_state`` from a ``torch.Generator`` seeded with 0 (no
 coincident pair, so both variants compute the same forces but for the

@@ -5,10 +5,14 @@ built library (``cuobjdump -sass``).
 
 builds the library at first use (``ops/_build.py``) and prints one line per
 inner loop of each kernel: a loop that ends in a backward branch, reads
-shared memory and holds no barrier, i.e. the sweep over a staged column
-tile.  The line gives the loop's instructions per pair and their mix, and
-for the force kernels K1 and K2 which of their three pair loops it is
-(``loop_roles``).  Each SM sub-partition issues one warp instruction per
+shared memory, holds no barrier and no other such loop, i.e. the sweep over
+a staged column tile.  The line gives the loop's instructions per pair and
+their mix, and for the force kernels K1 and K2 which of their three pair
+loops it is (``loop_roles``).  The symmetric kernel (K1's square fp32 case,
+csrc/forces_symmetric.cu) has two loops that evaluate each unordered pair
+once, for both bodies (the ones with shuffles: unbiased and constant bias),
+whose counts are per unordered pair, and K1's three loops on its diagonal
+tiles.  Each SM sub-partition issues one warp instruction per
 clock, and the FP32 pipe takes one FP32 instruction per clock from each, so
 a pair loop whose instructions are nearly all FP32 is bound by instruction
 issue: its time goes as its instructions per pair, whatever their unit.  It
@@ -37,6 +41,9 @@ from . import roofline_probe as p1
 # for each of the 4 unrolled 8-column chunks.
 _UNROLL = 8
 _MMA_PAIRS = 16
+# The symmetric kernel's pass off the diagonal: kSub columns by kRows rows
+# a thread (csrc/forces_symmetric.cu).
+SYMMETRIC_COLUMNS, SYMMETRIC_ROWS = 8, 8
 _PROBE_ROW_KERNEL = re.compile(
     r"(roofline_probe_kernel|bias_probe_kernel)<Li(\d+)ELi(\d+)>")
 # probe NAME -> (its module, its row kernel's template).
@@ -54,6 +61,8 @@ _KERNEL = re.compile(r"\d+([a-z_]+_kernel)I(\w+?)EE")
 # (csrc/pairs.cuh::sweep_segment), one per kind of dx bias.
 FORCE_KERNELS = ("block_forces_kernel", "band_partials_kernel")
 ROLES = ("unbiased", "constant bias", "per-pair bias")
+SYMMETRIC_KERNEL = "block_forces_symmetric_kernel"
+SYMMETRIC_ROLES = ("symmetric unbiased", "symmetric constant bias")
 
 
 def kernel_name(mangled: str) -> str:
@@ -100,7 +109,8 @@ def _opcode(text: str) -> str:
 
 def inner_loops(instrs):
     """The bodies of the backward branches that read shared memory and hold
-    no barrier, as Counters of opcodes, in address order."""
+    no barrier and no other such loop, as Counters of opcodes, in address
+    order."""
     index = {a: k for k, (a, _) in enumerate(instrs)}
     loops = []
     for k, (addr, text) in enumerate(instrs):
@@ -116,13 +126,18 @@ def inner_loops(instrs):
                                   for _, t in instrs[index[start]:k + 1])
         if any(op.startswith("LDS") for op in ops) and "BAR" not in ops:
             loops.append((start, addr, ops))
-    return sorted(loops)
+    return sorted(loop for loop in loops
+                  if not any(loop[0] <= other[0] and other[1] <= loop[1]
+                             and other != loop for other in loops))
 
 
-def pairs_per_pass(name: str) -> int:
-    """Pairs one pass of kernel ``name``'s inner loop covers."""
+def pairs_per_pass(name: str, ops=None) -> int:
+    """Pairs one pass of kernel ``name``'s inner loop covers (``ops``, the
+    loop's Counter, tells the symmetric kernel's loops apart)."""
     if name.startswith("bias_probe_mma_kernel"):
         return _MMA_PAIRS
+    if name.startswith(SYMMETRIC_KERNEL) and ops and ops["SHFL"]:
+        return SYMMETRIC_COLUMNS * SYMMETRIC_ROWS
     m = _PROBE_ROW_KERNEL.fullmatch(name)
     return _UNROLL * (int(m.group(3)) if m else 1)
 
@@ -133,9 +148,8 @@ def census(sass: str):
     rows = []
     for mangled, instrs in functions(sass).items():
         name = kernel_name(mangled)
-        pairs = pairs_per_pass(name)
         for start, end, ops in inner_loops(instrs):
-            rows.append((name, start, end, pairs, ops))
+            rows.append((name, start, end, pairs_per_pass(name, ops), ops))
     return rows
 
 
@@ -144,12 +158,21 @@ def loop_roles(rows):
     in census rows.  The per-pair loop is the one that converts the index
     difference to a float (I2F); of the other two the constant-bias loop
     has one FADD per pair more than the unbiased one, so it is the longer.
-    A kernel whose loops do not fit that pattern gets no roles."""
+    The symmetric kernel's loops with shuffles get SYMMETRIC_ROLES, the
+    shorter one unbiased; its other three are K1's.  A kernel whose loops
+    do not fit that pattern gets no roles."""
     loops = collections.defaultdict(list)
+    symmetric = collections.defaultdict(list)
     for name, start, _, _, ops in rows:
-        if name.startswith(FORCE_KERNELS):
+        if name.startswith(SYMMETRIC_KERNEL) and ops["SHFL"]:
+            symmetric[name].append((sum(ops.values()), start))
+        elif name.startswith(FORCE_KERNELS + (SYMMETRIC_KERNEL,)):
             loops[name].append((start, ops))
     roles = {}
+    for name, found in symmetric.items():
+        if len(found) == 2 and found[0][0] != found[1][0]:
+            for (_, start), role in zip(sorted(found), SYMMETRIC_ROLES):
+                roles[name, start] = role
     for name, found in loops.items():
         conv = [s for s, ops in found
                 if any(op.startswith("I2F") for op in ops)]

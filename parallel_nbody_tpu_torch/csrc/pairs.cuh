@@ -1,6 +1,7 @@
-// Pair arithmetic and column sweep shared by the two force kernels:
-// forces.cu (K1, one sum over all columns) and forces_streamed.cu (K2, one
-// partial sum per column band).
+// Pair arithmetic and column sweep shared by the force kernels: forces.cu
+// (K1, one sum over all columns), forces_streamed.cu (K2, one partial sum
+// per column band) and forces_symmetric.cu (K1's square fp32 case, whose
+// diagonal tiles run K1's sweep).
 //
 // Storage and compute types.  fp32 and fp64 compute in their own type.
 // bf16 is a storage format only, as in pallas_step.py::_compute_dtype:
@@ -142,19 +143,19 @@ __device__ __forceinline__ void sweep_tile(
 
 // The tile sweep with the tile's segment of the dx bias: none when
 // unbiased; else -C or +C when the tile [gj0, gj0 + kBlock) lies wholly
-// below or above the block's rows [gi0, gi0 + kBlock), and the per-pair bias
-// where they overlap.  Every operand of the choice is the same across the
-// block.
+// below or above the rows' block [gi0, gi0 + kBlock), and the per-pair bias
+// where they overlap; the row is gi0 + place.  The choice is the same for
+// every thread that shares gi0 and gj0.
 template <typename T>
 __device__ __forceinline__ void sweep_segment(
     const T* __restrict__ sx, const T* __restrict__ sy,
     const T* __restrict__ sm, const T* __restrict__ sr, T xi, T yi, T ri,
-    bool biased, long long gi0, long long gj0, T& ax, T& ay) {
+    bool biased, long long gi0, long long gj0, int place, T& ax, T& ay) {
   const long long d0 = gj0 - gi0;
   if (!biased) {
     sweep_tile<T, Bias::kNone>(sx, sy, sm, sr, xi, yi, ri, T(0), 0, ax, ay);
   } else if (d0 > -kBlock && d0 < kBlock) {
-    const int d = static_cast<int>(d0) - static_cast<int>(threadIdx.x);
+    const int d = static_cast<int>(d0) - place;
     sweep_tile<T, Bias::kPerPair>(sx, sy, sm, sr, xi, yi, ri, T(0), d, ax,
                                   ay);
   } else {
@@ -209,7 +210,8 @@ __device__ __forceinline__ void sweep_columns(
     }
     const long long gj0 = col_g0 + j0;
     T px = T(0), py = T(0);
-    sweep_segment<T>(sx, sy, sm, sr, xi, yi, ri, biased, gi0, gj0, px, py);
+    sweep_segment<T>(sx, sy, sm, sr, xi, yi, ri, biased, gi0, gj0,
+                     static_cast<int>(threadIdx.x), px, py);
     if (kComp) {
       kahan_add(ax, cx, px);
       kahan_add(ay, cy, py);

@@ -4,7 +4,8 @@ Two libraries, each built on its own so that a compile error in one never
 blocks the other:
 
 - ``load("kernels")`` (the default): the simulation's force kernels,
-  ``csrc/forces.cu`` (K1) and ``csrc/forces_streamed.cu`` (K2), into
+  ``csrc/forces.cu`` (K1), ``csrc/forces_symmetric.cu`` (K1's square fp32
+  case, each pair once) and ``csrc/forces_streamed.cu`` (K2), into
   ``_build/libnbody_kernels_<hash>.so``;
 - ``load("probes")``: the roofline and coincident-bias probes,
   ``csrc/roofline_probe.cu`` (P1) and ``csrc/bias_variants_probe.cu`` (P2),
@@ -63,16 +64,23 @@ _KERNEL_STEMS = {
                         _VP, _VP],
 }
 DTYPE_SUFFIXES = ("f32", "f64", "bf16")
+# The symmetric kernel's launchers, for the storage types that compute in
+# fp32: 4 pointers (x, y, mass, radius), n, tile, biased flag pointer,
+# biased default, workspace, stream.
+_SYMMETRIC_STEM = "nbody_block_forces_symmetric"
+_SYMMETRIC_ARGTYPES = [_VP] * 4 + [_I64, _I64, _VP, _INT, _VP, _VP]
 # The probes' launchers: variant, 8 input pointers (xi, yi, mi, ri, xj, yj,
 # mj, rj), n, tile_i, tile_j, 2 outputs, stream.
 _PROBE_ARGTYPES = [_INT] + [_VP] * 8 + [_I64] * 3 + [_VP] * 3
 
 # library name -> (sources in csrc/, {function name: argtypes}).
 LIBRARIES = {
-    "kernels": (("forces.cu", "forces_streamed.cu"),
-                {"%s_%s" % (stem, suffix): argtypes
-                 for stem, argtypes in _KERNEL_STEMS.items()
-                 for suffix in DTYPE_SUFFIXES}),
+    "kernels": (("forces.cu", "forces_symmetric.cu", "forces_streamed.cu"),
+                {**{"%s_%s" % (stem, suffix): argtypes
+                    for stem, argtypes in _KERNEL_STEMS.items()
+                    for suffix in DTYPE_SUFFIXES},
+                 **{"%s_%s" % (_SYMMETRIC_STEM, suffix): _SYMMETRIC_ARGTYPES
+                    for suffix in ("f32", "bf16")}}),
     "probes": (("roofline_probe.cu", "bias_variants_probe.cu"),
                {"nbody_roofline_probe": _PROBE_ARGTYPES,
                 "nbody_bias_variants_probe": _PROBE_ARGTYPES}),

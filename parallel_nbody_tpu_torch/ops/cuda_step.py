@@ -20,8 +20,13 @@ pair's term is the kick and a self-pair's is 0.  The kernels' geometry is
 massive bodies coincide — ``forces_coincident_dispatch`` chooses it from
 ``any_coincident``.
 
-- ``block_forces`` (K1, csrc/forces.cu; Pallas ``_force_kernel``) sums each
-  row over all columns in 128-wide tiles.
+- ``block_forces`` (K1, csrc/forces.cu, ``block_forces_one_sided``; Pallas
+  ``_force_kernel``) sums each row over all columns in 128-wide tiles.
+  Where the call shows one block of bodies against itself (equal lengths at
+  equal offsets, to ``STREAMED_ABOVE`` bodies) in float32 with plain sums
+  (``takes_symmetric``), it launches csrc/forces_symmetric.cu instead, which evaluates each
+  unordered pair once and applies it to both bodies, in the order that
+  ``symmetric_partials`` writes down, then folds with K2's ``band_fold``.
 - ``block_forces_streamed`` (K2, csrc/forces_streamed.cu; Pallas
   ``_force_kernel_streamed``) sums each row band by band (``band`` columns,
   65536 by default) and folds the band partials in band order.
@@ -58,6 +63,9 @@ STREAMED_ABOVE = 1 << 17
 STREAM_BAND = 65536
 # The kernels' j-tile (kBlock in csrc/pairs.cuh).
 TILE = 128
+# Bodies per tile of the symmetric kernel (kTile in csrc/forces_symmetric.cu,
+# which refuses a launch with another value).
+SYMMETRIC_TILE = 512
 ACCUMS = ("plain", "compensated")
 
 # Storage dtype -> compute dtype.
@@ -202,6 +210,81 @@ def block_forces_reference(cfg: SimConfig, xi, yi, mi, ri, xj, yj, mj, rj,
     return (ax * gmi).to(store), (ay * gmi).to(store)
 
 
+def _tile_sums(terms, tile):
+    """(rows, k) pair terms -> (rows, ceil(k / tile)): each ``tile``-wide
+    slice of a row summed as the symmetric kernel sums it, each ``TILE``-wide
+    block into a partial and the slice's partials added in order."""
+    rows, k = terms.shape
+    nt = -(-k // tile)
+    blocks = torch.nn.functional.pad(terms, (0, nt * tile - k)).view(
+        rows, nt, tile // TILE, TILE).sum(3)
+    out = blocks[:, :, 0]
+    for b in range(1, tile // TILE):
+        out = out + blocks[:, :, b]
+    return out
+
+
+def symmetric_partials(x, y, mass, radius, *, biased,
+                       tile: int = SYMMETRIC_TILE):
+    """The symmetric kernel's workspace in plain PyTorch: (nt, 2, n) raw
+    accelerations (before G * m), slot ``[K, :, b]`` body b's sum over the
+    bodies of tile K (``tile`` bodies each, the last one ragged).
+
+    One block of bodies against itself, each unordered pair evaluated once:
+    for the tile pair (I, J), J > I, the rows i of I get K1's terms
+    ``(m_j * w) * dx_ij`` summed over J into slot ``[J, :, i]`` (each
+    128-column block into a partial, the partials added in order), and the
+    columns j of J the terms ``-(m_i * w) * dx_ij`` (K1's own term for the
+    pair (j, i): the segmented bias is antisymmetric, so dx_ji = -dx_ij in
+    float) summed over I into slot ``[I, :, j]``.  A diagonal tile (I, I)
+    takes K1's one-sided terms of its rows over its own columns into slot
+    ``[I, :, i]``, summed the same way.  The bias is K1's: 128-row blocks against 128-wide
+    column tiles at equal offsets, so ``tile`` must be a multiple of 128."""
+    dtype, dev = x.dtype, x.device
+    eps = _EPS[dtype]
+    flag = _flag(biased)
+    n = x.shape[0]
+    nt = -(-n // tile)
+    ws = torch.zeros((nt, 2, n), dtype=dtype, device=dev)
+    for ti in range(nt):
+        r0, r1 = ti * tile, min(n, (ti + 1) * tile)
+        rows = slice(r0, r1)
+        dx = x[None, r0:] - x[rows, None]
+        if flag is not None:
+            b = dx + dx_bias(range(r0, r1), n - r0, row_g0=0, col_g0=r0,
+                             row_block=TILE, tile=TILE, dtype=dtype,
+                             device=dev)
+            dx = b if flag is True else torch.where(flag, b, dx)
+        dy = y[None, r0:] - y[rows, None]
+        dsqr = dx * dx + dy * dy
+        mind = radius[rows, None] + radius[None, r0:]
+        forced = torch.maximum(dsqr, mind * mind)
+        w = torch.rsqrt(forced * forced * dsqr + eps)
+        sj = mass[None, r0:] * w
+        si = mass[rows, None] * w
+        d = r1 - r0  # the diagonal tile's columns come first
+        for c, dc in ((0, dx), (1, dy)):
+            ws[ti, c, rows] = _tile_sums(sj[:, :d] * dc[:, :d], tile)[:, 0]
+            if r1 < n:
+                ws[ti + 1:, c, rows] = _tile_sums(sj[:, d:] * dc[:, d:],
+                                                  tile).t()
+                ws[ti, c, r1:] = (-(si[:, d:] * dc[:, d:])).sum(0)
+    return ws
+
+
+def block_forces_symmetric_reference(cfg: SimConfig, x, y, mass, radius, *,
+                                     biased, tile: int = SYMMETRIC_TILE):
+    """Plain PyTorch version of the symmetric kernel (one block of bodies
+    against itself, fp32 compute, plain sums): ``symmetric_partials``, the
+    slots of each body added in tile order 0..nt-1, then ``G * m``."""
+    store = x.dtype
+    x, y, mass, radius = _upcast((x, y, mass, radius))
+    ws = symmetric_partials(x, y, mass, radius, biased=biased, tile=tile)
+    ax, ay = _fold(ws[:, 0].t(), ws[:, 1].t(), "plain")
+    gm = mass * cfg.gravity
+    return (ax * gm).to(store), (ay * gm).to(store)
+
+
 def block_forces_streamed_reference(cfg: SimConfig, xi, yi, mi, ri, xj, yj,
                                     mj, rj, *, row_g0: int = 0,
                                     col_g0: int = 0,
@@ -289,16 +372,63 @@ def _launch(name, stem, dtype, device, *args):
                            % (name, lib.error_string(err), err))
 
 
+def takes_symmetric(dtype, m: int, k: int, *, row_g0: int, col_g0: int,
+                    accum: str) -> bool:
+    """Whether ``block_forces`` on a card takes the symmetric pass for an
+    (m, k) block pair of storage ``dtype``: the compute type is float32 (fp32
+    or bf16 storage), the sum is plain, and the call is one block of bodies
+    against itself, which it shows as ``m == k`` and ``row_g0 == col_g0``
+    (global ids name bodies in every program, so equal offsets and lengths
+    are the same bodies).  Only to ``STREAMED_ABOVE`` bodies, K1's range:
+    the (tiles, 2, m) fp32 workspace grows as m**2 / 64 bytes, 256 MiB
+    there, within K2's ``K2_WORKSPACE_BYTES``, and 16 GiB at 1M bodies."""
+    return (_COMPUTE.get(dtype) == torch.float32 and accum == "plain"
+            and m == k and row_g0 == col_g0 and m <= STREAMED_ABOVE)
+
+
 def block_forces(cfg: SimConfig, xi, yi, mi, ri, xj, yj, mj, rj, *,
                  row_g0: int = 0, col_g0: int = 0, biased,
                  accum: str = "plain"):
-    """K1: force of every body of block J on every body of block I.
+    """Force of every body of block J on every body of block I.
 
     ``biased`` is a bool, or a 0-d bool tensor that the kernel reads from
     device memory (no host sync).  Returns (xf, yf) of shape (M,) in the
-    inputs' dtype.  Each launch of the CUDA kernel adds one to
-    ``block_forces.launches``.
+    inputs' dtype.  Where ``takes_symmetric`` holds on the card, the pass is
+    the symmetric kernel into a (nt, 2, M) fp32 workspace and its fold
+    (``band_fold``), and adds one to ``block_forces.symmetric_launches``;
+    otherwise it is K1 (``block_forces_one_sided``).  Each pass on the card
+    adds one to ``block_forces.launches``.  On the CPU it is K1's plain
+    version.  Rows and columns at equal offsets and lengths must be the same
+    bodies: the symmetric pass reads only the rows.
     """
+    m, k = xi.shape[0], xj.shape[0]
+    if xi.device.type != "cuda" or m == 0 or not takes_symmetric(
+            xi.dtype, m, k, row_g0=row_g0, col_g0=col_g0, accum=accum):
+        out = block_forces_one_sided(cfg, xi, yi, mi, ri, xj, yj, mj, rj,
+                                     row_g0=row_g0, col_g0=col_g0,
+                                     biased=biased, accum=accum)
+        if xi.device.type == "cuda" and m:
+            block_forces.launches += 1
+        return out
+    rows = (xi, yi, mi, ri)
+    _check_inputs("block_forces", rows, (xj, yj, mj, rj), biased, accum)
+    ws = torch.empty((-(-m // SYMMETRIC_TILE), 2, m), dtype=torch.float32,
+                     device=xi.device)
+    _launch("block_forces", "nbody_block_forces_symmetric", xi.dtype,
+            xi.device, *(t.data_ptr() for t in rows), m, SYMMETRIC_TILE,
+            *_flag_args(biased), ws.data_ptr())
+    out = band_fold(cfg, ws, mi)
+    block_forces.launches += 1
+    block_forces.symmetric_launches += 1
+    return out
+
+
+def block_forces_one_sided(cfg: SimConfig, xi, yi, mi, ri, xj, yj, mj, rj,
+                           *, row_g0: int = 0, col_g0: int = 0, biased,
+                           accum: str = "plain"):
+    """K1 (csrc/forces.cu): each row summed over all columns in 128-wide
+    tiles, whatever the blocks; ``block_forces`` takes it wherever the
+    symmetric pass does not apply.  Called directly it counts nothing."""
     rows, cols = (xi, yi, mi, ri), (xj, yj, mj, rj)
     _check_inputs("block_forces", rows, cols, biased, accum)
     if xi.device.type == "cpu":
@@ -315,18 +445,19 @@ def block_forces(cfg: SimConfig, xi, yi, mi, ri, xj, yj, mj, rj, *,
             *(t.data_ptr() for t in cols), k, int(row_g0), int(col_g0),
             float(cfg.gravity), *_flag_args(biased),
             int(accum == "compensated"), xf.data_ptr(), yf.data_ptr())
-    block_forces.launches += 1
     return xf, yf
 
 
 block_forces.launches = 0
+block_forces.symmetric_launches = 0
 
 
 def band_fold(cfg: SimConfig, ws, mi, *, accum: str = "plain"):
     """K2's second launch on its own: fold the (bands, 2, M) band partials
     ``ws`` in band order and apply ``G * m_i``.  Returns (xf, yf) in
-    ``mi``'s dtype.  (``block_forces_streamed`` calls it; it has no count of
-    its own.)"""
+    ``mi``'s dtype.  (``block_forces_streamed`` and the symmetric pass of
+    ``block_forces``, whose tile slots it folds in tile order, call it; it
+    has no count of its own.)"""
     nb, _, m = ws.shape
     xf = torch.empty_like(mi)
     yf = torch.empty_like(mi)

@@ -76,6 +76,31 @@ def test_kernel_matches_reference(case, dtype, biased, dev):
                                    atol=TOL[dtype] * scale)
 
 
+@pytest.mark.parametrize("biased", [True, False])
+@pytest.mark.parametrize("case", ["square300", "zero_mass"])
+def test_one_sided_kernel_matches_reference_on_square_blocks(case, biased,
+                                                             dev):
+    """K1 itself on the fp32 square blocks, which block_forces hands to the
+    symmetric pass: block_forces_one_sided launches it, counts nothing, and
+    stays within the bound of its plain version."""
+    rows, cols, g0, c0 = blocks(case)
+    rows, cols = _on(rows, "float32", dev), _on(cols, "float32", dev)
+    cfg = SimConfig(force_mode="fast", dtype="float32", kernel="cuda")
+    before = (cuda_step.block_forces.launches,
+              cuda_step.block_forces.symmetric_launches)
+    got = cuda_step.block_forces_one_sided(cfg, *rows, *cols, row_g0=g0,
+                                           col_g0=c0, biased=biased)
+    torch.cuda.synchronize()
+    assert (cuda_step.block_forces.launches,
+            cuda_step.block_forces.symmetric_launches) == before
+    want = cuda_step.block_forces_reference(cfg, *rows, *cols, row_g0=g0,
+                                            col_g0=c0, biased=biased)
+    scale = max(float(w.abs().max()) for w in want)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=0,
+                                   atol=TOL["float32"] * scale)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_kernel_two_body_kick_and_device_flag(dtype, dev):
     cfg = SimConfig(force_mode="fast", dtype=dtype, kernel="cuda")
@@ -671,17 +696,21 @@ def test_cli_trace_on_card_holds_device_kernels(dev, arena, tmp_path, capsys,
     (path,) = glob.glob(d + "/*.trace.json.gz")
     with gzip.open(path, "rt") as f:
         events = json.load(f)["traceEvents"]
-    k1 = [e for e in events if e.get("cat") == "kernel"
-          and "block_forces_kernel" in e["name"]]
-    assert len(k1) == 10 and all(e["dur"] > 0 for e in k1)
+    # The fp32 force pass of one block against itself is the symmetric
+    # kernel and its fold (cuda_step.takes_symmetric): one of each a step.
+    for kernel in ("block_forces_symmetric_kernel", "band_fold_kernel"):
+        found = [e for e in events if e.get("cat") == "kernel"
+                 and kernel in e["name"]]
+        assert len(found) == 10 and all(e["dur"] > 0 for e in found)
 
 
 def test_step_spans_on_card_hold_every_launch(dev, tmp_path):
-    """20 steps at N=65536 in fp32 through K1 under ``utils.timing.trace``:
-    every device operation launched under ``nbody.step`` was launched under
+    """20 steps at N=65536 in fp32 under ``utils.timing.trace``: every
+    device operation launched under ``nbody.step`` was launched under
     exactly one of its three children (so the step's own device time is 0),
-    K1 under ``nbody.forces``, and every step launches as many operations as
-    the others."""
+    the force pass (the symmetric kernel and its fold) under
+    ``nbody.forces``, and every step launches as many operations as the
+    others."""
     import bisect
     import glob
     import gzip
@@ -708,7 +737,7 @@ def test_step_spans_on_card_hold_every_launch(dev, tmp_path):
     assert len(steps) == 20
     children = ("nbody.coincident", "nbody.forces", "nbody.integrate")
     per_step = [0] * len(steps)
-    k1 = 0
+    forces = {"block_forces_symmetric_kernel": 0, "band_fold_kernel": 0}
     for op in events:
         if op.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
             continue
@@ -723,10 +752,12 @@ def test_step_spans_on_card_hold_every_launch(dev, tmp_path):
         under = [e["name"] for e in spans if e["name"] in children
                  and e["tid"] == tid and e["ts"] <= t < e["ts"] + e["dur"]]
         assert len(under) == 1, (op["name"], under)
-        if "block_forces_kernel" in op["name"]:
-            assert under == ["nbody.forces"]
-            k1 += 1
-    assert k1 == 20
+        for kernel in forces:
+            if kernel in op["name"]:
+                assert under == ["nbody.forces"]
+                forces[kernel] += 1
+    assert forces == {"block_forces_symmetric_kernel": 20,
+                      "band_fold_kernel": 20}
     assert per_step[0] > 1 and len(set(per_step)) == 1, per_step
 
 
@@ -877,6 +908,126 @@ def test_world_of_one_on_nccl_is_engine_run(program, dev, nccl_world_of_one):
 
 
 # ---------------------------------------------------------------------------
+# the symmetric pass: K1's square fp32 case, each pair once
+# ---------------------------------------------------------------------------
+
+def _square(n, dev, dtype="float32"):
+    """One block of bodies (x, y, mass, radius) on the card: the glibc init
+    at n, which leaves coincident pairs at step 0."""
+    st = init_state(n, SimConfig(dtype=dtype), device=dev)
+    return (st.x, st.y, st.mass, st.radius)
+
+
+def _counts():
+    return (cuda_step.block_forces.launches,
+            cuda_step.block_forces.symmetric_launches)
+
+
+@pytest.mark.parametrize("biased", [True, False])
+@pytest.mark.parametrize("n", [384, 4097, 65536, 131072])
+def test_symmetric_kernel_matches_plain_version(n, biased, dev):
+    """The symmetric pass against its plain version (the same tile pairs,
+    diagonal tiles and fold order) within the kernels' bound; one force
+    pass, taken by the symmetric kernel."""
+    cfg = SimConfig(force_mode="fast", dtype="float32", kernel="cuda")
+    b = _square(n, dev)
+    flag = torch.tensor(biased, device=dev)
+    before = _counts()
+    got = cuda_step.block_forces(cfg, *b, *b, biased=flag)
+    torch.cuda.synchronize()
+    assert _counts() == (before[0] + 1, before[1] + 1)
+    want = cuda_step.block_forces_symmetric_reference(cfg, *b, biased=flag)
+    scale = max(float(w.abs().max()) for w in want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and bool(torch.isfinite(g).all())
+        assert float((g - w).abs().max()) <= TOL["float32"] * scale
+
+
+def test_symmetric_kernel_is_deterministic(dev):
+    """No atomics: two passes on the same inputs give the same bits, as the
+    benchmark's chunk_gap requires."""
+    cfg = SimConfig(force_mode="fast", dtype="float32", kernel="cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    st = random_state(65536, cfg, gen, device=dev)
+    b = (st.x, st.y, st.mass, st.radius)
+    for biased in (True, False):
+        one = cuda_step.block_forces(cfg, *b, *b, biased=biased)
+        two = cuda_step.block_forces(cfg, *b, *b, biased=biased)
+        assert all(torch.equal(g, w) for g, w in zip(one, two))
+
+
+@pytest.mark.parametrize("case, symmetric", [
+    ("fp32", True), ("bf16", True), ("fp64", False), ("compensated", False),
+    ("off_diagonal", False)])
+def test_symmetric_launches_count_square_fp32_plain_passes(case, symmetric,
+                                                           dev):
+    """symmetric_launches rises by one for a square fp32 or bf16 pass with
+    plain sums, and not for fp64, compensated sums or an off-diagonal
+    block, which stay bit-equal to the one-sided kernel
+    (block_forces_one_sided, which counts nothing)."""
+    dtype = {"bf16": "bfloat16", "fp64": "float64"}.get(case, "float32")
+    cfg = SimConfig(force_mode="fast", dtype=dtype, kernel="cuda")
+    b = _square(1000, dev, "float64" if case == "fp64" else "float32")
+    if case == "bf16":
+        b = tuple(t.to(torch.bfloat16) for t in b)
+    kw = dict(biased=True, row_g0=0, col_g0=0, accum="plain")
+    if case == "compensated":
+        kw["accum"] = "compensated"
+    if case == "off_diagonal":
+        kw["col_g0"] = 128
+    before = _counts()
+    got = cuda_step.block_forces(cfg, *b, *b, **kw)
+    assert _counts() == (before[0] + 1, before[1] + int(symmetric))
+    if not symmetric:
+        one_sided = cuda_step.block_forces_one_sided(cfg, *b, *b, **kw)
+        assert _counts() == (before[0] + 1, before[1])
+        assert all(torch.equal(g, w) for g, w in zip(got, one_sided))
+
+
+def test_symmetric_workspace_fits_the_budget(dev):
+    """At the top of K1's range (131072) the (tiles, 2, N) fp32 workspace
+    stays within K2's budget of 1 GiB, and the pass allocates no more than
+    it and its two outputs."""
+    cfg = SimConfig(force_mode="fast", dtype="float32", kernel="cuda")
+    n = cuda_step.STREAMED_ABOVE
+    ws_bytes = -(-n // cuda_step.SYMMETRIC_TILE) * 2 * n * 4
+    assert ws_bytes <= cuda_step.K2_WORKSPACE_BYTES
+    b = _square(n, dev)
+    cuda_step.block_forces(cfg, *b, *b, biased=False)  # warm the allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    before = _counts()
+    cuda_step.block_forces(cfg, *b, *b, biased=False)
+    torch.cuda.synchronize()
+    assert _counts()[1] == before[1] + 1
+    assert torch.cuda.max_memory_allocated(dev) - base <= ws_bytes + 2 * n * 4
+
+
+@pytest.mark.parametrize("name", sorted(KICK_PLACEMENTS))
+def test_symmetric_kick_is_k1_kick_on_card(name, dev):
+    """A coincident pair, every other body massless and far
+    (state.pad_state's padding), the placement's rows against themselves:
+    each body of the pair gets the one-sided kernel's kick bit for bit,
+    with opposite signs, and the far bodies exactly 0."""
+    rows, _, r0, _, (ia, ib) = kick_case(name)
+    b = _on(rows, "float32", dev)
+    cfg = SimConfig(force_mode="fast", dtype="float32", kernel="cuda")
+    before = _counts()
+    got = cuda_step.block_forces(cfg, *b, *b, row_g0=r0, col_g0=r0,
+                                 biased=True)
+    assert _counts()[1] == before[1] + 1
+    want = cuda_step.block_forces_one_sided(cfg, *b, *b, row_g0=r0,
+                                            col_g0=r0, biased=True)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    xf = got[0].cpu().numpy()
+    np.testing.assert_allclose([xf[ia], xf[ib]], [KICK, -KICK], rtol=1e-6)
+    far = np.ones(len(xf), bool)
+    far[[ia, ib]] = False
+    assert not xf[far].any() and not got[1].cpu().numpy().any()
+
+
+# ---------------------------------------------------------------------------
 # the speed tools on the card
 # ---------------------------------------------------------------------------
 
@@ -896,9 +1047,10 @@ def test_bench_headline_line_on_card(dev):
     assert fp["cuda"] == torch.version.cuda
 
 
-def test_row_block_sabotage_is_bit_equal_on_card(dev):
+def test_row_block_sabotage_is_bit_equal_on_card(dev, monkeypatch):
     """The perf gate's sabotage computes engine.run's state bit for bit,
-    in N/R K1 launches a step."""
+    in N/R K1 launches a step (engine.run held to one-sided K1: its square
+    fp32 pass is otherwise the symmetric one)."""
     from parallel_nbody_tpu_torch.benchmarks import bench
     cfg = bench.bench_cfg()
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -906,9 +1058,28 @@ def test_row_block_sabotage_is_bit_equal_on_card(dev):
     cuda_step.block_forces.launches = 0
     got = bench.runner(cfg, 3, 4096)(st)
     assert cuda_step.block_forces.launches == 3 * 4
+    monkeypatch.setattr(cuda_step, "takes_symmetric", lambda *a, **k: False)
     want = run(cfg, st, 3)
     for f, g, w in zip(got._fields, got, want):
         assert torch.equal(g, w), f
+
+
+def test_row_block_sabotage_is_near_the_symmetric_main_path_on_card(dev):
+    """The sabotage's row launches stay one-sided K1 (no symmetric pass),
+    and its state lies within the kernels' 2e-6 * max|F| of engine.run's,
+    whose square fp32 pass sums each pair once in another order."""
+    from parallel_nbody_tpu_torch.benchmarks import bench
+    cfg = bench.bench_cfg()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    st = random_state(16384, cfg, gen, device=dev)
+    before = _counts()
+    got = bench.runner(cfg, 3, 4096)(st)
+    assert _counts() == (before[0] + 3 * 4, before[1])
+    want = run(cfg, st, 3)
+    assert _counts()[1] == before[1] + 3
+    for f, g, w in zip(got._fields, got, want):
+        assert float((g - w).abs().max()) <= \
+            TOL["float32"] * float(w.abs().max()), f
 
 
 def test_k2_hold_on_card(dev):

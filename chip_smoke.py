@@ -25,6 +25,15 @@ fp32 main path to 131072 bodies) is held to its plain version at N=384,
 4097, 65536 and 131072, two passes bit-equal, the kick of each placed pair
 bit-equal to K1's and far padding exactly 0 (phase_symmetric), and timed
 beside K1 on the same bodies at 65536 and 131072.
+The parity pass (``forces_trig.cu``, its own library: float64, the
+reference's trig pair math in its per-body order) is held bit for bit to the
+dense trig path and to its plain version at N=2, 1000, 4096 and 10000 (the
+glibc init and random_state), two passes bit-equal, and to its plain version
+at 65536, then timed at N=10000 and 65536 beside the dense path at 10000
+(phase_trig); the CLI's ``65536 0 arena 3 --no-clamp --pallas --trig``
+launches it once a step and once to warm up, no other force kernel, and
+prints the bytes of the same run with the plain version's forces
+(phase_main_path_trig, the kernel line's ``launches``).
 The SASS census tells K1's and K2's three fp32 pair loops apart (unbiased,
 constant bias, per-pair bias), and the symmetric kernel's two loops from its
 diagonal's three, checks that none holds a per-pair branch or
@@ -57,6 +66,10 @@ run is known to differ and is pinned, not passed: K1's fast formula prints
 seq_10000_100.out's line 8345 one force digit off the reference
 (REPLAY_KNOWN_MISS); the JAX package's Pallas kernel does the same, and the
 dense trig path prints that fixture's bytes (tests/test_torch_gpu.py).
+Then the same oracles, fixtures and resume records through the parity
+spelling, ``--pallas --trig`` (the parity pass, float64): stdout byte-equal
+to every one, seq_10000_100.out's line 8345 included, the parity pass
+launched once a step and once for each run's warm-up and K1 never.
 
 The distributed programs (parallel_nbody_tpu_torch/parallel/):
   - A. World size 1 on NCCL (a process group of this process alone): the
@@ -201,7 +214,12 @@ Tolerances (each comparison uses the plain version's max |F| as the scale):
     through the symmetric pass), so the orders differ.
   - reference replay: none; stdout byte-equal to the reference binary's,
     but for the one pinned line of REPLAY_KNOWN_MISS, which must differ
-    exactly as recorded or not at all.
+    exactly as recorded or not at all; through ``--pallas --trig``, none
+    and no pinned line.
+  - the parity pass against the dense trig path and its plain version on
+    the card: none, bit for bit (the same arguments through the CUDA math
+    library's atan2, cos and sin, every other operation rounded once, each
+    body's terms added in ascending partner order).
   - drift: the fp32 force operator within the gate's TOL_FORCE (2e-3,
     relative with a floor of 1) of float64, bf16's within 1e-2 (its
     inputs are rounded to 8 bits; the TPU record has 3.9e-3), and the
@@ -338,13 +356,14 @@ def phase_device():
 
 
 def phase_build():
-    """Builds the force kernels and the probes side by side (two libraries,
-    every source's nvcc started at once)."""
+    """Builds the force kernels, the probes and the parity pass side by
+    side (three libraries, every source's nvcc started at once)."""
     from parallel_nbody_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
         libs = {name: pool.submit(_build.load, *args) for name, args in
-                (("kernels", ()), ("probes", ("probes",)))}
+                (("kernels", ()), ("probes", ("probes",)),
+                 ("trig", ("trig",)))}
         libs = {name: f.result() for name, f in libs.items()}
     seconds = time.perf_counter() - t0
     for name, lib in libs.items():
@@ -352,7 +371,7 @@ def phase_build():
                                             lib.path))
         if lib.build_log:
             print(lib.build_log.strip())
-    print("build: %.3f s to load both" % seconds)
+    print("build: %.3f s to load all three" % seconds)
     _probe_layout(libs["probes"])
     return seconds
 
@@ -1151,6 +1170,15 @@ REPLAY_FIXTURES = (("seq_2_1000.out", 2, 1000), ("seq_64_500.out", 64, 500),
                    ("seq_10000_100.out", 10000, 100),
                    ("128_MY_REF_OUTPUT", 128, 1000))
 REPLAY_FLAGS = ["--pallas", "--dtype=float64"]
+TRIG_REPLAY_FLAGS = ["--pallas", "--trig"]
+# The parity pass: sizes held to the dense path and the plain version, and
+# the sizes timed (CUDA events).
+TRIG_NS = (2, 1000, 4096, 10000)
+TRIG_SMALL_N = 10000
+# Steps of the parity mode's main path at MAIN_N (phase_main_path_trig).
+TRIG_MAIN_STEPS = 3
+# Published FP64 peak of one H100 SXM at 700 W, outside the tensor cores.
+PEAK_FP64_FLOPS = 34e12
 # The one run where K1's fast formula misses the reference's bytes: body
 # 8344's y-force at step 100, whose exact value lies 4 ulps under the
 # rounding boundary of its third decimal (bin/torch/boundary_digits.py).
@@ -1186,7 +1214,7 @@ def _replay_sets(root):
     return oracles, resumes
 
 
-def phase_reference_replay(dev, tmp):
+def phase_reference_replay(dev, tmp, trig=False):
     """K1 in fp64 against the reference binary's own bytes: every committed
     oracle and fixture of _replay_sets / REPLAY_FIXTURES through the CLI
     in-process, ``N 0 arena STEPS --pallas --dtype=float64`` on the card
@@ -1194,9 +1222,15 @@ def phase_reference_replay(dev, tmp):
     stdout byte-equal to the oracle but for REPLAY_KNOWN_MISS; then every
     resume record single-rank on the card, a .npz checkpoint at the split
     and a resume to the total, both legs byte-equal.  K1 launches once for
-    the warm-up step and once a step of each run.  Returns (K1 launches,
-    runs, seconds, the known misses that showed)."""
+    the warm-up step and once a step of each run.  With ``trig`` the runs
+    are ``--pallas --trig`` (the parity pass, which launches instead of K1)
+    and no line is pinned.  Returns (the kernel's launches, runs, seconds,
+    the known misses that showed)."""
+    from parallel_nbody_tpu_torch.ops import cuda_step
     from parallel_nbody_tpu_torch.utils import ppm
+    flags, known_miss = ((TRIG_REPLAY_FLAGS, {}) if trig
+                         else (REPLAY_FLAGS, REPLAY_KNOWN_MISS))
+    label = "reference replay" + (" --trig" if trig else "")
     root = os.path.dirname(os.path.abspath(__file__))
     oracles, resumes = _replay_sets(root)
     if len(oracles) != REPLAY_ORACLES or len(resumes) != REPLAY_RESUMES:
@@ -1214,7 +1248,7 @@ def phase_reference_replay(dev, tmp):
 
     def run(n, steps, path, extra=()):
         nonlocal runs
-        out, _ = _cli([str(n), "0", arena, str(steps)] + REPLAY_FLAGS
+        out, _ = _cli([str(n), "0", arena, str(steps)] + flags
                       + list(extra), "cuda")
         runs += 1
         with open(path) as f:
@@ -1226,7 +1260,7 @@ def phase_reference_replay(dev, tmp):
                     if a != b]
             rel = os.path.relpath(path, root)
             if (not extra and len(got_l) == len(want_l)
-                    and diff == [REPLAY_KNOWN_MISS.get(rel)]):
+                    and diff == [known_miss.get(rel)]):
                 known.append(rel)
                 return
             line = next(i for i, (a, b) in enumerate(zip(
@@ -1237,6 +1271,7 @@ def phase_reference_replay(dev, tmp):
                                  want_l[line:line + 1]))
 
     t0 = _reset_counts()
+    cuda_step.trig_forces.launches = 0
     for n, steps, path in plain:
         run(n, steps, path)
         launches += 1 + steps
@@ -1247,22 +1282,142 @@ def phase_reference_replay(dev, tmp):
         run(n, total, leg2, ["--resume=" + ck])
         launches += 2 + total
     seconds = time.perf_counter() - t0
-    print("reference replay: %d runs (%d oracles, %d fixtures, %d resumes "
-          "x 2 legs), %d mismatches, %d known (pinned) misses, %.1f s"
-          % (runs, len(oracles), len(REPLAY_FIXTURES), len(resumes),
+    print("%s: %d runs (%d oracles, %d fixtures, %d resumes x 2 legs), %d "
+          "mismatches, %d known (pinned) misses, %.1f s"
+          % (label, runs, len(oracles), len(REPLAY_FIXTURES), len(resumes),
              len(mismatches), len(known), seconds))
     for rel in known:
-        line, got, want = REPLAY_KNOWN_MISS[rel]
-        print("reference replay KNOWN MISS (open question): %s line %d: %r, "
-              "want %r" % (rel, line, got, want))
+        line, got, want = known_miss[rel]
+        print("%s KNOWN MISS (open question): %s line %d: %r, want %r"
+              % (label, rel, line, got, want))
     for line in mismatches:
-        print("reference replay MISMATCH: " + line)
-    k1, _ = _read_counts("reference replay", t0, launches, 0)
+        print("%s MISMATCH: %s" % (label, line))
+    k1, _ = _read_counts(label, t0, 0 if trig else launches, 0)
+    trig_launches = cuda_step.trig_forces.launches
+    print("%s: parity pass launches %d" % (label, trig_launches))
+    if trig_launches != (launches if trig else 0):
+        raise AssertionError("%s: the parity pass launched %d times"
+                             % (label, trig_launches))
     if mismatches:
-        raise AssertionError("reference replay: %d of %d runs differ from "
-                             "the reference's bytes"
-                             % (len(mismatches), runs))
-    return k1, runs, seconds, known
+        raise AssertionError("%s: %d of %d runs differ from the reference's "
+                             "bytes" % (label, len(mismatches), runs))
+    return trig_launches if trig else k1, runs, seconds, known
+
+
+def phase_trig(dev):
+    """The parity pass (csrc/forces_trig.cu) at TRIG_NS, from the glibc
+    init and from random_state, against the dense trig path and its plain
+    version on the card (bit for bit), two passes bit-equal; at MAIN_N,
+    past the dense path's reach, against its plain version on the card;
+    then its times at TRIG_SMALL_N and MAIN_N beside the dense path's and
+    the plain version's at TRIG_SMALL_N.  Returns ({label: ms}, the
+    launches it counted, max |kernel - plain version| at MAIN_N)."""
+    from parallel_nbody_tpu_torch.config import SimConfig
+    from parallel_nbody_tpu_torch.ops import cuda_step
+    from parallel_nbody_tpu_torch.ops.forces import compute_forces_dense
+    from parallel_nbody_tpu_torch.state import init_state, random_state
+    cfg = SimConfig(force_mode="trig", dtype="float64", kernel="cuda")
+    dense = cfg.replace(kernel="dense")
+
+    def bodies(n, law):
+        st = (init_state(n, cfg, device=dev) if law == "glibc" else
+              random_state(n, cfg, torch.Generator(device=dev).manual_seed(n),
+                           device=dev))
+        return [st.x, st.y, st.mass, st.radius]
+
+    def same(a, b):
+        return all(torch.equal(u.view(torch.int64), v.view(torch.int64))
+                   for u, v in zip(a, b))
+
+    cuda_step.trig_forces.launches = 0
+    passes = 0
+    for n in TRIG_NS:
+        for law in ("glibc", "uniform"):
+            b = bodies(n, law)
+            want = compute_forces_dense(dense, *b)
+            plain = cuda_step.trig_forces_reference(cfg, *b)
+            got = cuda_step.trig_forces(cfg, *b)
+            again = cuda_step.trig_forces(cfg, *b)
+            passes += 2
+            ok = same(got, want) and same(got, plain) and same(again, got)
+            print("parity pass N=%d %s: bit-equal to the dense path, the "
+                  "plain version and itself: %s" % (n, law, ok))
+            if not ok:
+                raise AssertionError("parity pass N=%d %s differs" % (n, law))
+            del want, plain
+            torch.cuda.empty_cache()
+    b = bodies(MAIN_N, "glibc")
+    t0 = time.perf_counter()
+    plain = cuda_step.trig_forces_reference(cfg, *b)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    got = cuda_step.trig_forces(cfg, *b)
+    passes += 1
+    max_err = max(float((g - w).abs().max()) for g, w in zip(got, plain))
+    print("parity pass N=%d glibc: max|kernel - plain version| %r (plain "
+          "version %.2f s), bit-equal: %s"
+          % (MAIN_N, max_err, plain_s, same(got, plain)))
+    if not same(got, plain):
+        raise AssertionError("parity pass N=%d differs from its plain "
+                             "version by %r" % (MAIN_N, max_err))
+    del got, plain
+    if cuda_step.trig_forces.launches != passes:
+        raise AssertionError("parity pass: %d launches counted for %d passes"
+                             % (cuda_step.trig_forces.launches, passes))
+    times = {}
+    for n, reps in ((TRIG_SMALL_N, 20), (MAIN_N, 5)):
+        b = bodies(n, "glibc")
+        times["ms_n%d" % n] = _time_ms(lambda: cuda_step.trig_forces(cfg, *b),
+                                       reps)
+        if n == TRIG_SMALL_N:
+            times["dense_ms_n%d" % n] = _time_ms(
+                lambda: compute_forces_dense(dense, *b), 3, warmup=1)
+            times["plain_ms_n%d" % n] = _time_ms(
+                lambda: cuda_step.trig_forces_reference(cfg, *b), 3,
+                warmup=1)
+    for key, ms in times.items():
+        print("parity pass time %s: %.6f ms" % (key, ms))
+    return times, cuda_step.trig_forces.launches, max_err
+
+
+def phase_main_path_trig(arena):
+    """The parity mode's main path at MAIN_N: the CLI's ``N 0 arena
+    TRIG_MAIN_STEPS --no-clamp --pallas --trig`` on the card with the
+    parity pass's counter zeroed just before it (one launch for the
+    warm-up step and one a step; no K1, symmetric pass or K2), its stdout
+    byte-equal to the same run with the parity pass's forces from its plain
+    version on the card.  Returns the parity pass's launches."""
+    from parallel_nbody_tpu_torch.models import engine
+    from parallel_nbody_tpu_torch.ops import cuda_step
+    argv = [str(MAIN_N), "0", arena, str(TRIG_MAIN_STEPS), "--no-clamp",
+            "--pallas", "--trig"]
+
+    def plain_forces(cfg, x, y, mass, radius, **_):
+        return cuda_step.trig_forces_reference(cfg, x, y, mass, radius)
+
+    _zero_passes()
+    cuda_step.block_forces_streamed.launches = 0
+    cuda_step.trig_forces.launches = 0
+    t0 = time.perf_counter()
+    out, _ = _cli(argv, "cuda")
+    seconds = time.perf_counter() - t0
+    launches = cuda_step.trig_forces.launches
+    k1, k2 = _passes(), cuda_step.block_forces_streamed.launches
+    with mock.patch.object(engine, "cuda_forces", plain_forces):
+        want, _ = _cli(argv, "cuda")
+    _state_table(out, MAIN_N)
+    print("main path trig: %s: parity pass launches %d (K1 %d, symmetric "
+          "%d, K2 %d), %.1f s; stdout byte-equal to the plain version's: %s"
+          % (" ".join(argv), launches, k1.k1, k1.symmetric, k2, seconds,
+             out == want))
+    if launches != 1 + TRIG_MAIN_STEPS or k1 != 0 or k2 != 0:
+        raise AssertionError("N=%d parity path launched the parity pass %d "
+                             "times, K1's path %d and K2 %d"
+                             % (MAIN_N, launches, k1, k2))
+    if out != want:
+        raise AssertionError("N=%d parity path: stdout differs from the "
+                             "plain version's" % MAIN_N)
+    return launches
 
 
 def _spawn_cpu(args, timeout=CPU_RANKS_TIMEOUT):
@@ -2014,7 +2169,7 @@ def _sass_census():
         print("sass census: cuobjdump not found, skipped")
         return {}
     ipp = {}
-    for lib in ("kernels", "probes"):
+    for lib in ("kernels", "probes", "trig"):
         rows = sass_census.census(sass_census.library_sass(lib))
         roles = sass_census.loop_roles(rows)
         for row in rows:
@@ -2023,6 +2178,10 @@ def _sass_census():
                 continue  # the fp32 loops are the ones the probes ablate
             role = roles.get((name, start), "")
             print("sass census %s" % sass_census.format_row(row, role))
+            if name.startswith(sass_census.TRIG_KERNEL):
+                if role != "trig":
+                    raise AssertionError("%s: no single trig loop" % name)
+                ipp[sass_census.TRIG_KERNEL, "trig"] = row
             if name.startswith(sass_census.FORCE_KERNELS):
                 if not role or ops["FSETP"] or ops["BRA"] != 1:
                     raise AssertionError(
@@ -2059,6 +2218,8 @@ def _sass_census():
         sass_census.probe_kernel_name(m.NAME, v)
         for m in (p1, p2) for v in m.VARIANTS)
         if (k, "probe") not in ipp]
+    if (sass_census.TRIG_KERNEL, "trig") not in ipp:
+        missing.append((sass_census.TRIG_KERNEL, "trig"))
     if missing:
         raise AssertionError("sass census: no loop for %s" % missing)
     return ipp
@@ -2119,6 +2280,33 @@ def _issue_report(ipp, issue_hz, times, times_big, probe_events):
               "%.6f ms (%.1f%% of the issue rate)"
               % (probe, variant, PROBE_N, ms, count, note, bound,
                  100 * bound / ms))
+
+
+def _trig_issue(ipp, issue_hz, times):
+    """The parity pass's times (phase_trig) at TRIG_SMALL_N and MAIN_N
+    beside its loop's issue bound: each thread evaluates one ordered pair a
+    pass, N**2 pairs, at the larger of the loop's instructions and twice its
+    FP64 instructions a warp pass (``sass_census.issue_cycles_per_pair``;
+    the count includes the loop's out-of-line slow paths, so the bound is a
+    little high).  Returns {"n<N>": (instructions, FP64 instructions, bound
+    ms)}."""
+    from parallel_nbody_tpu_torch.benchmarks import sass_census
+    row = ipp.get((sass_census.TRIG_KERNEL, "trig"))
+    out = {}
+    for n in (TRIG_SMALL_N, MAIN_N):
+        ms = times["ms_n%d" % n]
+        if row is None:
+            print("issue parity pass N=%d: %.6f ms" % (n, ms))
+            continue
+        bound = (sass_census.issue_cycles_per_pair(row) * n * n / WARP
+                 / issue_hz * 1e3)
+        print("issue parity pass N=%d: %.6f ms; %.3f instr/pair (FP64 %.3f): "
+              "issue bound %.6f ms (%.1f%% of the issue rate)"
+              % (n, ms, sass_census.instr_per_pair(row),
+                 sass_census.fp64_per_pair(row), bound, 100 * bound / ms))
+        out["n%d" % n] = (sass_census.instr_per_pair(row),
+                          sass_census.fp64_per_pair(row), bound)
+    return out
 
 
 def _symmetric_issue(ipp, issue_hz, n, t_off, t_on, t_fold):
@@ -2702,6 +2890,7 @@ def main() -> int:
         phase_compensated(dev)
         phase_bf16(dev)
         phase_coincident(dev)
+        trig_times, launches_trig_phase, max_err_trig = phase_trig(dev)
         t_wait = time.perf_counter()
         phase_cpu_ranks(cpu_ranks, cpu_arena, cpu_tmp)
         print("cpu ranks: joined at %.1f s, after %.1f s of waiting"
@@ -2711,17 +2900,22 @@ def main() -> int:
         ppm.create(arena, 1024, 768)
         launches_k1, _ = phase_main_path(arena)
         launches_k2 = phase_main_path_streamed(arena)
+        launches_trig = phase_main_path_trig(arena)
         render_ms, _ = phase_render(dev)
         launches_frames, _, _, _ = phase_frame_path(tmp, render_ms)
         launches_resumed, _, _ = phase_checkpoint(tmp, arena, dev)
         launches_resumed_dir, _, _ = phase_dir_checkpoint(tmp, arena, dev)
         phase_diagnostics(tmp, arena)
         launches_replay, _, _, known = phase_reference_replay(dev, tmp)
+        launches_trig_replay, _, _, _ = phase_reference_replay(dev, tmp,
+                                                               trig=True)
     phase_state_streamed(dev)
     times = phase_timing(dev)
     times_big = phase_timing_streamed(dev)
     probe_events, probes = phase_probes(dev)
-    _issue_report(_sass_census(), issue_hz, times, times_big, probe_events)
+    ipp = _sass_census()
+    _issue_report(ipp, issue_hz, times, times_big, probe_events)
+    trig_issue = _trig_issue(ipp, issue_hz, trig_times)
     t_dist = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         launches_world, _, _ = phase_world_of_one(dev, tmp)
@@ -2831,6 +3025,28 @@ def main() -> int:
         "ms_biased": times_big["K2_biased"],
         "plain_ms": plain_ms_k2,
         "n": BIG_N,
+    }, {
+        "name": "trig_forces_kernel",
+        "route": "cuda",
+        "source": source % "forces_trig.cu",
+        "replaces": "none (the parity mode's dense path, "
+                    "parallel_nbody_tpu_torch/ops/forces.py:89)",
+        "launches": launches_trig,
+        "launches_phase_trig": launches_trig_phase,
+        "launches_reference_replay": launches_trig_replay,
+        "max_abs_err": max_err_trig,
+        "ms": trig_times["ms_n%d" % MAIN_N],
+        "ms_n%d" % TRIG_SMALL_N: trig_times["ms_n%d" % TRIG_SMALL_N],
+        "plain_ms_n%d" % TRIG_SMALL_N: trig_times["plain_ms_n%d"
+                                                  % TRIG_SMALL_N],
+        "dense_ms_n%d" % TRIG_SMALL_N: trig_times["dense_ms_n%d"
+                                                  % TRIG_SMALL_N],
+        "issue_bound": trig_issue,
+        # The reference's work, as the benchmark's force_roofline_pct.trig
+        # counts it: 20 FP64 operations per unordered pair.
+        "bound_ms": MAIN_N * (MAIN_N - 1) / 2 * 20 / PEAK_FP64_FLOPS * 1e3,
+        "bound_by": "operations",
+        "n": MAIN_N,
     }, dict(
         name="roofline_probe_kernel<full>",
         route="cuda",

@@ -1,7 +1,7 @@
 """Instruction census of the kernels' pair loops, read from the SASS of a
 built library (``cuobjdump -sass``).
 
-    python -m parallel_nbody_tpu_torch.benchmarks.sass_census [kernels|probes]
+    python -m parallel_nbody_tpu_torch.benchmarks.sass_census [kernels|probes|trig]
 
 builds the library at first use (``ops/_build.py``) and prints one line per
 inner loop of each kernel: a loop that ends in a backward branch, reads
@@ -12,11 +12,18 @@ loops it is (``loop_roles``).  The symmetric kernel (K1's square fp32 case,
 csrc/forces_symmetric.cu) has two loops that evaluate each unordered pair
 once, for both bodies (the ones with shuffles: unbiased and constant bias),
 whose counts are per unordered pair, and K1's three loops on its diagonal
-tiles.  Each SM sub-partition issues one warp instruction per
+tiles.  The parity pass (csrc/forces_trig.cu, library ``trig``) has one
+loop, a pass of which evaluates one ordered pair a thread in float64 and
+adds its group's terms; its out-of-line slow paths (the argument reduction
+of huge angles, a division's special cases) lie inside the loop's address
+range too, so its count is an upper bound of the path that runs.  Each SM
+sub-partition issues one warp instruction per
 clock, and the FP32 pipe takes one FP32 instruction per clock from each, so
 a pair loop whose instructions are nearly all FP32 is bound by instruction
-issue: its time goes as its instructions per pair, whatever their unit.  It
-needs ``cuobjdump`` (CUDA toolkit), not a card.
+issue: its time goes as its instructions per pair, whatever their unit.
+The FP64 pipe takes a warp's FP64 instruction in two clocks (16 lanes), so
+the parity loop's bound is the larger of its instructions and twice its
+FP64 instructions.  It needs ``cuobjdump`` (CUDA toolkit), not a card.
 """
 
 from __future__ import annotations
@@ -49,8 +56,9 @@ _PROBE_ROW_KERNEL = re.compile(
 # probe NAME -> (its module, its row kernel's template).
 _PROBE_ROW_KERNELS = {p1.NAME: (p1, "roofline_probe_kernel"),
                       p2.NAME: (p2, "bias_probe_kernel")}
-# Opcodes of the FP32 pipe, counted together.
+# Opcodes of the FP32 pipe, counted together, and of the FP64 pipe.
 FP32 = ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL")
+FP64 = ("DADD", "DMUL", "DFMA", "DMNMX", "DSETP")
 _LDS_FLOATS = {"LDS": 1, "LDS.64": 2, "LDS.128": 4}
 
 _FUNCTION = re.compile(r"Function : (\S+)")
@@ -63,6 +71,7 @@ FORCE_KERNELS = ("block_forces_kernel", "band_partials_kernel")
 ROLES = ("unbiased", "constant bias", "per-pair bias")
 SYMMETRIC_KERNEL = "block_forces_symmetric_kernel"
 SYMMETRIC_ROLES = ("symmetric unbiased", "symmetric constant bias")
+TRIG_KERNEL = "trig_forces_kernel"
 
 
 def kernel_name(mangled: str) -> str:
@@ -138,6 +147,8 @@ def pairs_per_pass(name: str, ops=None) -> int:
         return _MMA_PAIRS
     if name.startswith(SYMMETRIC_KERNEL) and ops and ops["SHFL"]:
         return SYMMETRIC_COLUMNS * SYMMETRIC_ROWS
+    if name.startswith(TRIG_KERNEL):
+        return 1
     m = _PROBE_ROW_KERNEL.fullmatch(name)
     return _UNROLL * (int(m.group(3)) if m else 1)
 
@@ -159,16 +170,21 @@ def loop_roles(rows):
     difference to a float (I2F); of the other two the constant-bias loop
     has one FADD per pair more than the unbiased one, so it is the longer.
     The symmetric kernel's loops with shuffles get SYMMETRIC_ROLES, the
-    shorter one unbiased; its other three are K1's.  A kernel whose loops
-    do not fit that pattern gets no roles."""
+    shorter one unbiased; its other three are K1's.  The parity pass's one
+    loop is ``trig``.  A kernel whose loops do not fit that pattern gets no
+    roles."""
     loops = collections.defaultdict(list)
     symmetric = collections.defaultdict(list)
+    trig = collections.defaultdict(list)
     for name, start, _, _, ops in rows:
-        if name.startswith(SYMMETRIC_KERNEL) and ops["SHFL"]:
+        if name.startswith(TRIG_KERNEL):
+            trig[name].append(start)
+        elif name.startswith(SYMMETRIC_KERNEL) and ops["SHFL"]:
             symmetric[name].append((sum(ops.values()), start))
         elif name.startswith(FORCE_KERNELS + (SYMMETRIC_KERNEL,)):
             loops[name].append((start, ops))
-    roles = {}
+    roles = {(name, found[0]): "trig" for name, found in trig.items()
+             if len(found) == 1}
     for name, found in symmetric.items():
         if len(found) == 2 and found[0][0] != found[1][0]:
             for (_, start), role in zip(sorted(found), SYMMETRIC_ROLES):
@@ -249,16 +265,30 @@ def instr_per_pair(row) -> float:
     return sum(row[4].values()) / row[3]
 
 
+def fp64_per_pair(row) -> float:
+    """FP64-pipe instructions per pair of one census row."""
+    return sum(row[4][op] for op in FP64) / row[3]
+
+
+def issue_cycles_per_pair(row) -> float:
+    """A sub-partition's clocks per warp pass of one census row, per pair
+    of a thread: its instructions, or twice its FP64 instructions where the
+    FP64 pipe is the tighter limit."""
+    return max(instr_per_pair(row), 2 * fp64_per_pair(row))
+
+
 def format_row(row, role: str = "") -> str:
     name, start, end, pairs, ops = row
     total = sum(ops.values())
     fp32 = sum(ops[op] for op in FP32)
-    return ("%-34s %-13s loop %5x-%5x  %6.3f instr/pair: FP32 %6.3f, MUFU "
+    fp64 = sum(ops[op] for op in FP64)
+    return ("%-34s %-13s loop %5x-%5x  %6.3f instr/pair: FP32 %6.3f, %sMUFU "
             "%5.3f, HMMA %5.3f, shared floats %5.3f, other %6.3f"
             % (name, role, start, end, total / pairs, fp32 / pairs,
+               "FP64 %6.3f, " % (fp64 / pairs) if fp64 else "",
                ops["MUFU"] / pairs, ops["HMMA"] / pairs,
                floats_loaded(ops) / pairs,
-               (total - fp32 - ops["MUFU"] - ops["HMMA"]
+               (total - fp32 - fp64 - ops["MUFU"] - ops["HMMA"]
                 - sum(n for op, n in ops.items() if op.startswith("LDS")))
                / pairs))
 
@@ -285,7 +315,7 @@ def library_sass(name: str) -> str:
 
 def main(argv=None) -> int:
     argv = sys.argv if argv is None else argv
-    for name in argv[1:] or ("kernels", "probes"):
+    for name in argv[1:] or ("kernels", "probes", "trig"):
         rows = census(library_sass(name))
         roles = loop_roles(rows)
         for row in rows:

@@ -18,6 +18,12 @@ plus the JAX package's extensions, parsed the same way (cli.py of
                       the flag keeps the JAX package's name): K1, or K2
                       above 131072 bodies in either block.  On a CPU device
                       the kernels' plain PyTorch versions run.
+    --trig            with --pallas: the parity mode (the reference's trig
+                      force path, which is the default without --pallas)
+                      through the parity pass (csrc/forces_trig.cu), on one
+                      device and in float64 (the default dtype then, and
+                      the only one): the dense path's forces bit for bit,
+                      in memory that grows as N, not N^2
     --dtype=T         bfloat16 | float32 | float64 (default: float64 on
                       cpu, float32 on cuda)
     --no-clamp        allow N > 10000 (the reference clamps to MAXBODIES)
@@ -173,6 +179,8 @@ def parse_args(argv):
         elif a == "--pallas":
             opts["fast"] = True
             opts["pallas"] = True
+        elif a == "--trig":
+            opts["trig"] = True
         elif a.startswith("--dtype="):
             opts["dtype"] = a.split("=", 1)[1]
             if opts["dtype"] == "float16":
@@ -224,6 +232,16 @@ def parse_args(argv):
         else:
             sys.stderr.write("Unknown flag: %s\n" % a)
             sys.exit(1)
+    # --trig, the one flag the JAX CLI lacks, is a key of opts only when
+    # given, so every other argv parses to the JAX parser's opts.
+    if opts.get("trig") and not opts["pallas"]:
+        sys.stderr.write("--trig selects the parity pass of --pallas; "
+                         "without --pallas the trig path is the default\n")
+        sys.exit(1)
+    if opts.get("trig") and opts["dtype"] not in (None, "float64"):
+        sys.stderr.write("--pallas --trig computes in float64 only: "
+                         "--dtype=%s\n" % opts["dtype"])
+        sys.exit(1)
     n = _atoi(argv[1])
     if not opts["no_clamp"]:
         if n > MAXBODIES:
@@ -286,7 +304,8 @@ def main(argv=None) -> int:
     if device is None:
         return 1
     if opts["dtype"] is None:
-        opts["dtype"] = "float64" if device.type == "cpu" else "float32"
+        parity = device.type == "cpu" or opts.get("trig")
+        opts["dtype"] = "float64" if parity else "float32"
 
     try:
         ppmio.read_header(ppm_path)
@@ -313,6 +332,11 @@ def main(argv=None) -> int:
         # One device, or under a launcher every rank it started (the JAX
         # CLI's len(jax.devices())).
         n_dev = opts["devices"] or world
+    if opts.get("trig") and n_dev > 1:
+        if rank0:
+            sys.stderr.write("--pallas --trig runs on one device (%d "
+                             "requested)\n" % n_dev)
+        return 1
     args = (n, secsup, ppm_path, steps, opts, n_dev)
     if launched and n_dev != world:
         if rank0:
@@ -381,7 +405,8 @@ def _simulate(device, n, secsup, ppm_path, steps, opts, n_dev,
     ppm = ppmio.read_header(ppm_path)
     cfg = SimConfig(
         xdim=ppm.xdim, ydim=ppm.ydim,
-        force_mode="fast" if opts["fast"] else "trig",
+        force_mode=("trig" if opts.get("trig") or not opts["fast"]
+                    else "fast"),
         dtype=opts["dtype"],
         kernel="cuda" if opts["pallas"] else "dense",
         accum=opts["accum"])

@@ -44,11 +44,13 @@ class SimConfig:
         tensor ops; ``"cuda"`` runs the hand-written all-pairs kernels
         (csrc/, ops/cuda_step.py).  ``"xla"`` and ``"pallas"`` (the JAX
         package's names) map to them.  With ``"cuda"``, bfloat16 is a
-        storage format: the kernels compute and sum in float32.
+        storage format: the kernels compute and sum in float32; with
+        ``force_mode="trig"`` (float64 only) the kernel is the parity pass,
+        bit for bit the dense path's forces.
       accum: ``"plain"`` sums force partials directly; ``"compensated"``
         Kahan-folds the CUDA kernels' partial sums (per column tile, and
-        across column bands above 131072 bodies).  The dense path ignores
-        it, as the JAX package's does.
+        across column bands above 131072 bodies).  The dense path and the
+        parity pass ignore it, as the JAX package's dense path does.
     """
 
     xdim: int = 1024
@@ -67,11 +69,12 @@ class SimConfig:
         if self.kernel not in ("dense", "cuda"):
             raise ValueError("unsupported kernel %r (expected dense or cuda)"
                              % (self.kernel,))
-        if self.kernel == "cuda" and self.force_mode == "trig":
+        if self.kernel == "cuda" and self.force_mode == "trig" \
+                and self.dtype != "float64":
             raise ValueError(
-                "kernel='cuda' implements only force_mode='fast' (the "
-                "transcendental-free path); the trig parity decomposition "
-                "(nbody-seq.c:91-98) requires kernel='dense'")
+                "kernel='cuda' with force_mode='trig' is the parity pass "
+                "(csrc/forces_trig.cu), which computes in float64 only; "
+                "got dtype=%r" % (self.dtype,))
         if self.dtype == "float16":
             raise ValueError(
                 "dtype='float16' is unsupported: the reference mass law "

@@ -5,7 +5,8 @@ The reference's hot loop (nbody-seq.c:457-472) is
 with a buffer flip.  Here ``run`` is a Python loop of ``step``, each step a
 sequence of eager tensor ops on the state's device; with ``kernel="cuda"``
 the force pass is one call of a hand-written kernel (K1, or K2 above 131072
-bodies, in several row launches past K2's workspace bound;
+bodies, in several row launches past K2's workspace bound; in the parity
+mode, ``force_mode="trig"`` in float64, the parity pass at any N;
 ops/cuda_step.cuda_forces).  Nothing in the
 loop reads a value back to the host, so on a GPU the launches queue without
 waiting for the device (the NaN-check debug mode of ``run`` aside).
@@ -35,7 +36,7 @@ def step(cfg: SimConfig, state: State) -> State:
     children ``nbody.coincident``, ``nbody.forces`` or ``nbody.integrate``
     (``utils.timing.span``)."""
     with span("nbody.step"):
-        if cfg.kernel == "cuda":
+        if cfg.kernel == "cuda" and cfg.force_mode == "fast":
             # The coincidence flag stays on the device: the kernel reads it
             # and adds the reference's atan2(0,0) kick (nbody-seq.c:91-106)
             # only on steps that hold coincident distinct bodies.
@@ -45,9 +46,15 @@ def step(cfg: SimConfig, state: State) -> State:
                                            state.mass, state.radius,
                                            biased=biased, accum=cfg.accum))
         else:
+            # The trig formula makes that kick by itself, so the parity
+            # pass, like the dense path, runs no coincidence flag.
             with span("nbody.forces"):
-                xf, yf = compute_forces_dense(cfg, state.x, state.y,
-                                              state.mass, state.radius)
+                if cfg.kernel == "cuda":
+                    xf, yf = cuda_forces(cfg, state.x, state.y, state.mass,
+                                         state.radius, biased=False)
+                else:
+                    xf, yf = compute_forces_dense(cfg, state.x, state.y,
+                                                  state.mass, state.radius)
         return _integrate(cfg, state, xf, yf)
 
 
@@ -78,6 +85,11 @@ def make_hosted_row_step(cfg: SimConfig, n: int, row_chunk: int = 524288):
     and loads the kernel library and runs no step.  On CPU tensors each
     launch is K2's plain version.
     """
+
+    if cfg.force_mode != "fast":
+        raise ValueError("make_hosted_row_step: the row launches are K2's, "
+                         "force_mode='fast' only; the parity mode steps "
+                         "through step() at any N")
 
     def step_fn(state: State, fence=None) -> State:
         if state.x.shape[0] != n:

@@ -1,7 +1,7 @@
 """Build the package's CUDA kernels at first use and load them with ctypes.
 
-Two libraries, each built on its own so that a compile error in one never
-blocks the other:
+Three libraries, each built on its own so that a compile error in one never
+blocks another, and no source's change or flag reaches the others' builds:
 
 - ``load("kernels")`` (the default): the simulation's force kernels,
   ``csrc/forces.cu`` (K1), ``csrc/forces_symmetric.cu`` (K1's square fp32
@@ -9,7 +9,10 @@ blocks the other:
   ``_build/libnbody_kernels_<hash>.so``;
 - ``load("probes")``: the roofline and coincident-bias probes,
   ``csrc/roofline_probe.cu`` (P1) and ``csrc/bias_variants_probe.cu`` (P2),
-  into ``_build/libnbody_probes_<hash>.so``.
+  into ``_build/libnbody_probes_<hash>.so``;
+- ``load("trig")``: the parity pass, ``csrc/forces_trig.cu`` (float64, the
+  reference's transcendental pair math), into
+  ``_build/libnbody_trig_<hash>.so``.
 
 ``nvcc`` compiles each source of a library to an object, all of them at
 once, and links the objects.  The sources have a plain C interface and no
@@ -73,6 +76,10 @@ _SYMMETRIC_ARGTYPES = [_VP] * 4 + [_I64, _I64, _VP, _INT, _VP, _VP]
 # mj, rj), n, tile_i, tile_j, 2 outputs, stream.
 _PROBE_ARGTYPES = [_INT] + [_VP] * 8 + [_I64] * 3 + [_VP] * 3
 
+# The parity pass's launcher: 4 pointers (x, y, mass, radius), n, gravity,
+# 2 outputs, stream.
+_TRIG_ARGTYPES = [_VP] * 4 + [_I64, ctypes.c_double, _VP, _VP, _VP]
+
 # library name -> (sources in csrc/, {function name: argtypes}).
 LIBRARIES = {
     "kernels": (("forces.cu", "forces_symmetric.cu", "forces_streamed.cu"),
@@ -84,6 +91,7 @@ LIBRARIES = {
     "probes": (("roofline_probe.cu", "bias_variants_probe.cu"),
                {"nbody_roofline_probe": _PROBE_ARGTYPES,
                 "nbody_bias_variants_probe": _PROBE_ARGTYPES}),
+    "trig": (("forces_trig.cu",), {"nbody_trig_forces_f64": _TRIG_ARGTYPES}),
 }
 
 

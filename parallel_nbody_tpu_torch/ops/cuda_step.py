@@ -37,6 +37,13 @@ dropped at band end (``pallas_step._acc_finish``).  bfloat16 is a storage
 format: inputs upcast to float32, every sum stays float32, and the result is
 rounded to bfloat16 once (``pallas_step._compute_dtype``).
 
+- ``trig_forces`` (the parity pass, csrc/forces_trig.cu; no Pallas
+  counterpart) is ``force_mode="trig"`` in float64: the reference's
+  transcendental pair math, each body's terms added one at a time in
+  ascending partner order, bit for bit ``ops.forces.compute_forces_dense``'s
+  trig path.  The kick of a coincident pair is atan2(0, 0)'s own, so it
+  takes no flag.
+
 ``cuda_forces`` and ``block_forces_auto`` dispatch as ``pallas_forces`` and
 ``pallas_block_forces_auto`` do: K2 above ``STREAMED_ABOVE`` bodies.  On the
 H100 that threshold is no memory limit (K1 streams its column tiles from
@@ -47,7 +54,7 @@ within ``K2_WORKSPACE_BYTES`` (``streamed_forces``).
 
 On CUDA tensors each wrapper launches its kernel or raises; on CPU tensors
 it runs its plain PyTorch version (``block_forces_reference``,
-``block_forces_streamed_reference``).
+``block_forces_streamed_reference``, ``trig_forces_reference``).
 """
 
 from __future__ import annotations
@@ -57,6 +64,7 @@ import torch
 from ..config import SimConfig
 from ..utils.timing import span
 from . import _build
+from .forces import _DENOM_FLOOR, pair_forces_trig
 
 # pallas_step._VMEM_RESIDENT_LIMIT and pallas_block_forces_streamed's band.
 STREAMED_ABOVE = 1 << 17
@@ -91,6 +99,20 @@ _MAX_BANDS = 65535
 # keep: 1 GiB holds one launch over all rows up to N=2.9M in fp32 and
 # N=2**21 in fp64; past that the rows go in several launches.
 K2_WORKSPACE_BYTES = 1 << 30
+# Elements per (rows, columns) intermediate of the parity pass's plain
+# version: 16 MiB in fp64.
+_TRIG_CHUNK_ELEMS = 1 << 21
+# Elements per torch.atan2 call of that plain version on the CPU: a whole
+# number of vectors at every width, and below the 32768 elements at which
+# ATen splits an elementwise loop over threads.  This and ``_TRIG_TINY``
+# follow ATen's CPU loops as torch 2.13 (CPU build) has them on an AVX-512
+# Xeon, where they were measured; another torch or vector width may move
+# them, which tests/test_torch_trig.py's bit-equality tests then show.  The
+# card's path does not read them.
+_ATAN2_CALL = 1 << 14
+# Below this many bodies the plain version takes its pair values from the
+# dense path's own (N, N) call (see ``trig_forces_reference``).
+_TRIG_TINY = 16
 
 
 def _flag(biased):
@@ -360,10 +382,11 @@ def _flag_args(biased):
     return None, int(bool(biased))
 
 
-def _launch(name, stem, dtype, device, *args):
-    """Call the C launcher ``stem`` for storage ``dtype`` on the device's
-    current stream; raise if the launch was refused."""
-    lib = _build.load()
+def _launch(name, stem, dtype, device, *args, library="kernels"):
+    """Call the C launcher ``stem`` of the library ``library`` for storage
+    ``dtype`` on the device's current stream; raise if the launch was
+    refused."""
+    lib = _build.load(library)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.fn(stem, _SUFFIX[dtype])(*args, stream)
@@ -558,11 +581,125 @@ def streamed_forces(cfg: SimConfig, x, y, mass, radius, *, biased,
     return torch.cat(fxs), torch.cat(fys)
 
 
+def _atan2_vectorised(dy, dx):
+    """``torch.atan2(dy, dx)`` with every element through ATen's vectorised
+    CPU loop (SLEEF's atan2): flat calls of ``_ATAN2_CALL`` elements, the
+    last one padded, so that no call splits over threads or leaves a tail
+    to the scalar loop, whose glibc atan2 rounds some arguments otherwise.
+    The value of an element then depends on its arguments alone, not on
+    where a call puts it.  On other devices, ``torch.atan2`` (the card's
+    elementwise kernel already computes every element alike)."""
+    if dy.device.type != "cpu":
+        return torch.atan2(dy, dx)
+    fy, fx = dy.reshape(-1), dx.reshape(-1)
+    out = torch.empty_like(fy)
+    for s in range(0, fy.numel(), _ATAN2_CALL):
+        a, b = fy[s:s + _ATAN2_CALL], fx[s:s + _ATAN2_CALL]
+        k = a.numel()
+        if k < _ATAN2_CALL:
+            pad = (0, _ATAN2_CALL - k)
+            a = torch.nn.functional.pad(a, pad)
+            b = torch.nn.functional.pad(b, pad, value=1.0)
+        out[s:s + k] = torch.atan2(a, b)[:k]
+    return out.view(dy.shape)
+
+
+def _trig_terms(cfg: SimConfig, x, y, mass, radius, c0: int, c1: int):
+    """The terms of every body's sum from the bodies ``c0 .. c1 - 1``: two
+    (N, c1 - c0) tensors, ``[k, j - c0]`` holding pair(k, j) for j > k,
+    -pair(j, k) for j < k and 0 for j == k, each pair in the reference's
+    roles (the lower index first: ``dx = x[hi] - x[lo]``), one evaluation
+    per ordered pair as the kernel makes it."""
+    n = x.shape[0]
+    k = torch.arange(n, device=x.device)[:, None]
+    j = torch.arange(c0, c1, device=x.device)[None, :]
+    upper = j > k
+    xr, yr, xc, yc = x[:, None], y[:, None], x[None, c0:c1], y[None, c0:c1]
+    dx = torch.where(upper, xc - xr, xr - xc)
+    dy = torch.where(upper, yc - yr, yr - yc)
+    angle = _atan2_vectorised(dy, dx)
+    dsqr = dx * dx + dy * dy
+    mind = radius[:, None] + radius[None, c0:c1]
+    forced = torch.clamp_min(torch.maximum(dsqr, mind * mind), _DENOM_FLOOR)
+    force = mass[:, None] * mass[None, c0:c1] * cfg.gravity / forced
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    out = []
+    for t in (force * torch.cos(angle), force * torch.sin(angle)):
+        out.append(torch.where(j == k, zero, torch.where(upper, t, -t)))
+    return out
+
+
+def trig_forces_reference(cfg: SimConfig, x, y, mass, radius):
+    """Plain PyTorch version of the parity pass (float64): every body's sum
+    from +0, one term at a time in ascending partner order, the terms of
+    ``_trig_terms`` in column chunks.  Adding the chunk's 0 at a body's own
+    slot changes no bit: a sum that starts at +0 never becomes -0.
+
+    It is ``ops.forces.compute_forces_dense``'s trig path bit for bit
+    wherever the two evaluate each pair's atan2 alike.  On the card every
+    element of an elementwise kernel is.  On the CPU this version sends
+    every pair through ATen's vectorised atan2 (``_atan2_vectorised``),
+    while the dense path's one (N, N) call leaves its last N*N mod 16
+    elements (AVX-512; mod 8 under AVX2) to the scalar loop, and on several
+    threads each thread's last few: on one thread those lie in the last
+    row, which holds no pair, from N = 16 on.  Below ``_TRIG_TINY`` bodies
+    the pair values therefore come from that same (N, N) call
+    (``ops.forces.pair_forces_trig``), each term read from it as the dense
+    path's signed matrix holds it."""
+    n = x.shape[0]
+    xf = torch.zeros_like(x)
+    yf = torch.zeros_like(x)
+    if n < _TRIG_TINY:
+        fx, fy = pair_forces_trig(cfg, x, y, mass, radius)
+        chunks = [(fx - fx.T, fy - fy.T)]
+    else:
+        step = max(1, _TRIG_CHUNK_ELEMS // n)
+        chunks = (_trig_terms(cfg, x, y, mass, radius, c0, min(n, c0 + step))
+                  for c0 in range(0, n, step))
+    for tx, ty in chunks:
+        for cx, cy in zip(tx.t().contiguous(), ty.t().contiguous()):
+            xf += cx
+            yf += cy
+    return xf, yf
+
+
+def trig_forces(cfg: SimConfig, x, y, mass, radius):
+    """The parity pass: the total force on every body in float64 through
+    csrc/forces_trig.cu, bit for bit ``ops.forces.compute_forces_dense``'s
+    trig path (the reference's pair math and per-body order).  Each pass on
+    the card adds one to ``trig_forces.launches``; on the CPU it is
+    ``trig_forces_reference``."""
+    state = (x, y, mass, radius)
+    _check_inputs("trig_forces", state, state, False, "plain")
+    if x.dtype != torch.float64:
+        raise TypeError("trig_forces: dtype %s (the parity pass computes "
+                        "in float64 only)" % x.dtype)
+    if x.device.type == "cpu":
+        return trig_forces_reference(cfg, *state)
+    n = x.shape[0]
+    xf = torch.empty_like(x)
+    yf = torch.empty_like(x)
+    if n == 0:
+        return xf, yf
+    _launch("trig_forces", "nbody_trig_forces", x.dtype, x.device,
+            *(t.data_ptr() for t in state), n, float(cfg.gravity),
+            xf.data_ptr(), yf.data_ptr(), library="trig")
+    trig_forces.launches += 1
+    return xf, yf
+
+
+trig_forces.launches = 0
+
+
 def cuda_forces(cfg: SimConfig, x, y, mass, radius, *, biased,
                 accum: str = "plain"):
     """Total pairwise forces (square case), as ``pallas_forces`` computes
     them: K2 with band ``STREAM_BAND`` above ``STREAMED_ABOVE`` bodies, in
-    row launches (``streamed_forces``), K1 otherwise."""
+    row launches (``streamed_forces``), K1 otherwise.  With
+    ``force_mode="trig"`` it is the parity pass (``trig_forces``) at any N,
+    which reads neither ``biased`` nor ``accum``."""
+    if cfg.force_mode == "trig":
+        return trig_forces(cfg, x, y, mass, radius)
     if x.shape[0] > STREAMED_ABOVE:
         return streamed_forces(cfg, x, y, mass, radius, biased=biased,
                                accum=accum)

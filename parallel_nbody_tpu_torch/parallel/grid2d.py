@@ -99,6 +99,9 @@ def make_grid2d_run(cfg: SimConfig, mesh, steps: int):
     padded ``State`` (padded to pr * pc) -> its shard after ``steps``
     steps.  Every rank of ``mesh`` calls it; ``nan_check_from`` as in
     ``sharded_step.make_sharded_run``."""
+    if cfg.kernel == "cuda" and cfg.force_mode == "trig":
+        raise ValueError("the parity pass runs on one device; ranks take "
+                         "the trig path with kernel='dense'")
     rows = mesh.get_group(ROW_AXIS)  # same column: gathers the col group
     cols = mesh.get_group(COL_AXIS)  # same row: gathers the row group
     my_r = mesh.get_local_rank(ROW_AXIS)

@@ -132,6 +132,9 @@ def make_sharded_run(cfg: SimConfig, mesh, steps: int,
     if comm not in ("allgather", "ring"):
         raise ValueError("unknown comm %r (expected allgather or ring)"
                          % (comm,))
+    if cfg.kernel == "cuda" and cfg.force_mode == "trig":
+        raise ValueError("the parity pass runs on one device; ranks take "
+                         "the trig path with kernel='dense'")
     group = mesh.get_group(BODY_AXIS)
     rank = mesh.get_local_rank(BODY_AXIS)
     p = mesh.size()

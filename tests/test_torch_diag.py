@@ -247,16 +247,18 @@ def _inside(span, spans):
 
 
 KERNEL_CFG = SimConfig(force_mode="fast", dtype="float32", kernel="cuda")
+TRIG_CFG = SimConfig(force_mode="trig", dtype="float64", kernel="cuda")
 
 
-@pytest.mark.parametrize("path", ["cuda", "dense", "hosted"])
+@pytest.mark.parametrize("path", ["cuda", "dense", "hosted", "trig"])
 def test_trace_holds_the_programs_spans(path, tmp_path):
     """Three steps: three ``nbody.step`` spans, each holding one
-    ``nbody.forces`` and one ``nbody.integrate`` (and on the kernel path
-    one ``nbody.coincident``) that do not overlap; one ``nbody.render`` a
-    frame, outside every step."""
+    ``nbody.forces`` and one ``nbody.integrate`` (and on K1's and K2's path
+    one ``nbody.coincident``; the parity pass, like the dense path, runs no
+    flag) that do not overlap; one ``nbody.render`` a frame, outside every
+    step."""
     n = 64
-    cfg = CFG if path == "dense" else KERNEL_CFG
+    cfg = {"dense": CFG, "trig": TRIG_CFG}.get(path, KERNEL_CFG)
     st = init_state(n, cfg)
     log_dir = str(tmp_path / "trace")
     with timing.trace(log_dir):
@@ -269,7 +271,7 @@ def test_trace_holds_the_programs_spans(path, tmp_path):
         render_frame(cfg, st.x, st.y, st.radius, n)
     spans = _spans(_events(log_dir))
     children = ["nbody.forces", "nbody.integrate"]
-    if path != "dense":
+    if path in ("cuda", "hosted"):
         children.insert(0, "nbody.coincident")
     assert sorted(spans) == sorted(children + ["nbody.step", "nbody.render"])
     assert len(spans["nbody.step"]) == 3 and len(spans["nbody.render"]) == 1

@@ -16,7 +16,9 @@ at N=384, 1152 and 4096 against their plain versions in the kernels' order
 (``probe_forces_kernel_order``): 2e-5 * max|F| for the fp32 variants
 (chip_smoke.TOL), and for the two tensor-core variants, which round each
 term to tf32 (2^-11 relative), the per-row bound
-|err_i| <= 2^-10 * |G m_i| * sum_j |term_ij|.
+|err_i| <= 2^-10 * |G m_i| * sum_j |term_ij|.  The parity pass (trig, fp64)
+against the dense trig path and its plain version on the card: none, bit
+for bit.
 """
 
 import os
@@ -36,7 +38,7 @@ from parallel_nbody_tpu_torch.state import init_state, random_state
 from parallel_nbody_tpu_torch.utils import ppm
 from torch_cases import (BLOCK_CASES, KICK, KICK_PLACEMENTS, SEGMENT_CASES,
                          blocks, glibc_like, kick_case, probe_inputs,
-                         segment_blocks)
+                         segment_blocks, trig_bodies)
 
 TOL = {"float32": 2e-6, "float64": 1e-12}
 
@@ -1184,3 +1186,146 @@ def test_pallas_fp64_resume_on_card_prints_reference_bytes(dev, tmp_path,
         114, 124, d + "seq_114_124.out", tmp_path, capsys, monkeypatch,
         ("--pallas", "--resume=" + ck))
     assert (got, launches) == (want, 124)
+
+
+# ---------------------------------------------------------------------------
+# The parity pass (csrc/forces_trig.cu): float64, the reference's trig pair
+# math in its per-body order.  Held to the dense trig path on the card bit
+# for bit: both compute each pair with the CUDA math library's atan2, cos
+# and sin on the same arguments, round every other operation once, and add
+# each body's terms in ascending partner order.
+# ---------------------------------------------------------------------------
+
+TRIG_CFG = SimConfig(force_mode="trig", dtype="float64", kernel="cuda")
+
+
+def _trig_state(n, law, dev):
+    """(x, y, mass, radius) on the card: the CLI's glibc init (coincident
+    pairs from N=4096 on, and at N=2 the two bodies of ``trig_bodies``'s
+    glibc law) or random_state."""
+    if law == "glibc" and n >= 64:
+        st = init_state(n, TRIG_CFG, device=dev)
+        return [st.x, st.y, st.mass, st.radius]
+    if law == "glibc":
+        return _on(trig_bodies(n, "glibc"), "float64", dev)
+    st = random_state(n, TRIG_CFG, torch.Generator(device=dev).manual_seed(n),
+                      device=dev)
+    return [st.x, st.y, st.mass, st.radius]
+
+
+def _bit_equal(got, want):
+    return all(torch.equal(g.view(torch.int64), w.view(torch.int64))
+               for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("law", ["glibc", "uniform"])
+@pytest.mark.parametrize("n", [2, 64, 1000, 4096, 10000])
+def test_trig_kernel_is_dense_trig_on_card(n, law, dev):
+    from parallel_nbody_tpu_torch.ops.forces import compute_forces_dense
+    b = _trig_state(n, law, dev)
+    before = cuda_step.trig_forces.launches
+    got = cuda_step.trig_forces(TRIG_CFG, *b)
+    again = cuda_step.trig_forces(TRIG_CFG, *b)
+    assert cuda_step.trig_forces.launches == before + 2
+    want = compute_forces_dense(TRIG_CFG.replace(kernel="dense"), *b)
+    assert _bit_equal(got, want)
+    assert _bit_equal(again, got)
+
+
+@pytest.mark.parametrize("n", [64, 4096, 65536])
+def test_trig_kernel_is_its_plain_version_on_card(n, dev):
+    """The plain version, run on the card's tensors, gives the kernel's
+    bits (the wrapper takes it on CPU tensors only), also at the
+    benchmark's N=65536, past the dense path's reach."""
+    b = _trig_state(n, "glibc", dev)
+    want = cuda_step.trig_forces_reference(TRIG_CFG, *b)
+    assert _bit_equal(cuda_step.trig_forces(TRIG_CFG, *b), want)
+
+
+def test_trig_engine_counts_one_pass_a_step_and_no_other_kernel(dev):
+    """engine.run in the parity mode: one parity pass a step, no K1, K2 or
+    symmetric pass; a fast-mode run launches K1's path and no parity pass."""
+    st = init_state(4096, TRIG_CFG, device=dev)
+    counts = lambda: (cuda_step.trig_forces.launches,  # noqa: E731
+                      cuda_step.block_forces.launches,
+                      cuda_step.block_forces_streamed.launches)
+    t0, k10, k20 = counts()
+    run(TRIG_CFG, st, 7)
+    assert counts() == (t0 + 7, k10, k20)
+    fast = SimConfig(force_mode="fast", dtype="float32", kernel="cuda")
+    run(fast, init_state(4096, fast, device=dev), 3)
+    assert counts() == (t0 + 7, k10 + 3, k20)
+
+
+def test_trig_step_spans_on_card_hold_every_launch(dev, tmp_path):
+    """11 steps at N=10000 under ``utils.timing.trace``, the first left out
+    (the trace can miss the first device operation after the profiler
+    starts, and this step's first is the parity kernel): every device
+    operation launched under the other ``nbody.step`` spans lies under one
+    of its children, ``nbody.forces`` or ``nbody.integrate`` (no
+    ``nbody.coincident``: the trig formula makes the coincident kick
+    itself), and the parity kernel, one a step, under ``nbody.forces``."""
+    import glob
+    import gzip
+    import json
+    from parallel_nbody_tpu_torch.utils import timing
+    st = run(TRIG_CFG, init_state(10000, TRIG_CFG, device=dev), 1)
+    torch.cuda.synchronize()
+    d = str(tmp_path / "trace")
+    with timing.trace(d):
+        run(TRIG_CFG, st, 11)
+        torch.cuda.synchronize()
+    (path,) = glob.glob(d + "/*.trace.json.gz")
+    with gzip.open(path, "rt") as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    spans = [e for e in events if e.get("cat") == "user_annotation"
+             and e["name"].startswith("nbody.")]
+    assert {e["name"] for e in spans} == {"nbody.step", "nbody.forces",
+                                          "nbody.integrate"}
+    launches = {e["args"]["correlation"]: e for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    steps = sorted((e for e in spans if e["name"] == "nbody.step"),
+                   key=lambda e: e["ts"])
+    assert len(steps) == 11
+    steps = steps[1:]
+    trig, under_steps = 0, 0
+    for op in events:
+        if op.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        launch = launches.get(op.get("args", {}).get("correlation"))
+        if launch is None:
+            continue
+        t, tid = launch["ts"], launch["tid"]
+        if not any(s["ts"] <= t < s["ts"] + s["dur"] and s["tid"] == tid
+                   for s in steps):
+            continue
+        under_steps += 1
+        under = [e["name"] for e in spans if e["name"] != "nbody.step"
+                 and e["tid"] == tid and e["ts"] <= t < e["ts"] + e["dur"]]
+        assert len(under) == 1, (op["name"], under)
+        if "trig_forces_kernel" in op["name"]:
+            assert under == ["nbody.forces"]
+            trig += 1
+    assert trig == 10 and under_steps % 10 == 0
+
+
+@pytest.mark.parametrize("oracle, n, steps", [
+    ("tests/fixtures/seq_2_1000.out", 2, 1000),
+    ("tests/fixtures/seq_256_300.out", 256, 300),
+    ("tests_out/fuzz/seq_116_302.out", 116, 302),
+    ("tests/fixtures/seq_10000_100.out", 10000, 100),
+])
+def test_trig_spelling_on_card_prints_reference_bytes(oracle, n, steps, dev,
+                                                      tmp_path, capsys,
+                                                      monkeypatch):
+    """``--pallas --trig`` on the card prints the reference binary's bytes,
+    the N=10000 fixture's line 8345 too, which K1's fast formula misses;
+    the parity pass runs once a step and once for the warm-up step, and K1
+    never."""
+    cuda_step.trig_forces.launches = 0
+    got, want, k1 = _replay_on_card(n, steps, oracle, tmp_path, capsys,
+                                    monkeypatch, ("--pallas", "--trig"))
+    assert got == want
+    assert (k1, cuda_step.trig_forces.launches) == (0, 1 + steps)

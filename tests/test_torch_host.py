@@ -69,7 +69,8 @@ def test_config_from_dict(jkw, kernel):
 
 
 @pytest.mark.parametrize("kw, exc", [
-    (dict(kernel="cuda", force_mode="trig"), ValueError),
+    (dict(kernel="cuda", force_mode="trig", dtype="float32"), ValueError),
+    (dict(kernel="cuda", force_mode="trig", dtype="bfloat16"), ValueError),
     (dict(dtype="float16"), ValueError),
     (dict(dtype="int8"), ValueError),
     (dict(kernel="triton"), ValueError),

@@ -28,6 +28,35 @@ def glibc_like(n, seed, coincident=((10, 20),)):
     return [x, y, r**3, r]
 
 
+TRIG_LAWS = ("glibc", "uniform", "row")
+
+
+def trig_bodies(n, law, seed=0):
+    """float64 arrays [x, y, mass, radius] of ``n`` bodies for the parity
+    pass's tests: "glibc" (``glibc_like``, with coincident pairs: bodies 0
+    and 1 below 64 bodies, else 10 and 20 and 3 and n - 1), "uniform"
+    (continuous positions in the 1024x768 arena) or "row" (every body on
+    y = 100 in ascending x, so each pair's angle is +0 and each y term +0
+    or -0).  One body sits on the wall x = 0 and one on the arena's last
+    column."""
+    rng = np.random.RandomState(seed)
+    if law == "glibc":
+        x, y, m, r = glibc_like(n, seed, ())
+    else:
+        x = rng.uniform(0, 1024, n)
+        y = rng.uniform(0, 768, n) if law == "uniform" else np.full(n,
+                                                                    100.0)
+        r = 1.0 + rng.uniform(0, 5, n)
+        m = r**3
+    x[0], x[n // 2] = 0.0, 1023.0
+    if law == "row":
+        x = np.sort(x)
+    if law == "glibc":
+        for a, b in ((0, 1),) if n < 64 else ((10, 20), (3, n - 1)):
+            x[b], y[b] = x[a], y[a]
+    return [x, y, m, r]
+
+
 def bf16_ulps(got, want):
     """Elementwise distance in bf16 steps between two arrays of bf16
     values (given as anything numpy reads as float32)."""

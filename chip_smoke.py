@@ -34,6 +34,11 @@ at 65536, then timed at N=10000 and 65536 beside the dense path at 10000
 launches it once a step and once to warm up, no other force kernel, and
 prints the bytes of the same run with the plain version's forces
 (phase_main_path_trig, the kernel line's ``launches``).
+The coincidence flag (``coincident.cu``, its own library: a hash-table
+duplicate test in one launch after one memset) is held to its plain
+version, the three stable sorts, on the glibc init and random_state at
+N=65536 and 1048576, and both are timed there beside the kernel's bound
+(phase_coincident); the main path launches it once a force pass.
 The SASS census tells K1's and K2's three fp32 pair loops apart (unbiased,
 constant bias, per-pair bias), and the symmetric kernel's two loops from its
 diagonal's three, checks that none holds a per-pair branch or
@@ -262,6 +267,7 @@ MAIN_N, MAIN_STEPS = 65536, 100  # K1's path
 SYM_NS = (384, 4097, MAIN_N, 131072)
 SYM_BIG_N = 131072
 BIG_N, BIG_STEPS = 262144, 20  # K2's path: above cuda_step.STREAMED_ABOVE
+COINCIDENT_NS = (MAIN_N, 1 << 20)  # the flag's timings: K1's and K2's cells
 BIG_RUNS = (("fp32", []), ("fp32 compensated", ["--accum=compensated"]),
             ("bf16", ["--dtype=bfloat16"]))
 K1, K2 = "block_forces", "block_forces_streamed"
@@ -356,14 +362,14 @@ def phase_device():
 
 
 def phase_build():
-    """Builds the force kernels, the probes and the parity pass side by
-    side (three libraries, every source's nvcc started at once)."""
+    """Builds the force kernels, the probes, the parity pass and the
+    coincidence flag side by side (four libraries, every source's nvcc
+    started at once)."""
     from parallel_nbody_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
-        libs = {name: pool.submit(_build.load, *args) for name, args in
-                (("kernels", ()), ("probes", ("probes",)),
-                 ("trig", ("trig",)))}
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        libs = {name: pool.submit(_build.load, name)
+                for name in ("kernels", "probes", "trig", "coincident")}
         libs = {name: f.result() for name, f in libs.items()}
     seconds = time.perf_counter() - t0
     for name, lib in libs.items():
@@ -371,7 +377,7 @@ def phase_build():
                                             lib.path))
         if lib.build_log:
             print(lib.build_log.strip())
-    print("build: %.3f s to load all three" % seconds)
+    print("build: %.3f s to load all four" % seconds)
     _probe_layout(libs["probes"])
     return seconds
 
@@ -612,18 +618,45 @@ def phase_bf16(dev):
 
 
 def phase_coincident(dev):
-    from parallel_nbody_tpu_torch.ops.cuda_step import any_coincident
+    """The coincidence flag (csrc/coincident.cu): True on the glibc init
+    at N=4096 and False on random_state; then, at COINCIDENT_NS, uniform
+    and glibc, fp32, the kernel's flag equal to the plain version's (the
+    sort on the card) and both timed with CUDA events beside the kernel's
+    bound, 12 bytes a body read once.  Returns the times by label."""
+    from parallel_nbody_tpu_torch.ops import cuda_step
     from parallel_nbody_tpu_torch.state import init_state, random_state
     cfg = _cfg("float32")
     st = init_state(4096, cfg, device=dev)
-    flag = any_coincident(st.x, st.y, st.mass)
+    flag = cuda_step.any_coincident(st.x, st.y, st.mass)
     if flag.device.type != "cuda" or not bool(flag):
         raise AssertionError("any_coincident missed the N=4096 glibc pairs")
     gen = torch.Generator(device=dev).manual_seed(0)
     st = random_state(4096, cfg, gen, device=dev)
-    if bool(any_coincident(st.x, st.y, st.mass)):
+    if bool(cuda_step.any_coincident(st.x, st.y, st.mass)):
         raise AssertionError("any_coincident flagged a random state")
     print("any_coincident: True on glibc N=4096, False on random_state")
+    times = {}
+    for n in COINCIDENT_NS:
+        gen = torch.Generator(device=dev).manual_seed(n)
+        for law, st in (("uniform", random_state(n, cfg, gen, device=dev)),
+                        ("glibc", init_state(n, cfg, device=dev))):
+            b = (st.x, st.y, st.mass)
+            got = bool(cuda_step.any_coincident(*b))
+            want = bool(cuda_step.any_coincident_reference(*b))
+            if got != want or got != (law == "glibc"):
+                raise AssertionError("any_coincident N=%d %s: kernel %s, "
+                                     "plain version %s" % (n, law, got,
+                                                           want))
+            key = "%s_n%d" % (law, n)
+            times[key] = _time_ms(lambda: cuda_step.any_coincident(*b), 50)
+            times["plain_" + key] = _time_ms(
+                lambda: cuda_step.any_coincident_reference(*b), 20)
+            bound = 12 * n / PEAK_BYTES_PER_S * 1e3
+            print("any_coincident N=%d %-7s flag %s: kernel %.6f ms, the "
+                  "sort %.6f ms, bound %.6f ms (%.1f%%)"
+                  % (n, law, got, times[key], times["plain_" + key], bound,
+                     100 * bound / times[key]))
+    return times
 
 
 def _cli(argv, platform, want_rc=0):
@@ -683,33 +716,40 @@ def _passes():
 
 
 def _xps_run(n, steps, extra, arena):
-    """One ``--run-xps`` CLI run on the card with both kernels' counts set
-    to 0 just before it; returns (block_forces's passes, K2 launches,
-    RTIME)."""
+    """One ``--run-xps`` CLI run on the card with the kernels' counts set
+    to 0 just before it, one flag launch a force pass; returns
+    (block_forces's passes, K2 launches, RTIME)."""
     from parallel_nbody_tpu_torch.ops import cuda_step
     from parallel_nbody_tpu_torch.utils.output import pair_interactions
     argv = [str(n), "0", arena, str(steps), "--no-clamp", "--pallas",
             "--run-xps"] + extra
     _zero_passes()
     cuda_step.block_forces_streamed.launches = 0
+    cuda_step.any_coincident.launches = 0
     out, err = _cli(argv, "cuda")
     k1 = _passes()
     k2 = cuda_step.block_forces_streamed.launches
+    flags = cuda_step.any_coincident.launches
     row = re.fullmatch(r"%d,(\d+\.\d{3}), (\d+\.\d{2})\n" % n, out)
     if row is None:
         raise AssertionError("malformed CSV row: %r" % out)
     rtime = float(row.group(1))
     print("main path: %s" % " ".join(argv))
-    print("main path: launches K1 %d symmetric %d K2 %d, RTIME %.3f s, "
-          "%.6e unordered pairs/s, GFLOPS (reference model) %s"
-          % (k1.k1, k1.symmetric, k2, rtime, pair_interactions(n, steps) / rtime,
-             row.group(2)))
+    print("main path: launches K1 %d symmetric %d K2 %d flag %d, RTIME "
+          "%.3f s, %.6e unordered pairs/s, GFLOPS (reference model) %s"
+          % (k1.k1, k1.symmetric, k2, flags, rtime,
+             pair_interactions(n, steps) / rtime, row.group(2)))
+    if flags != (k1 or k2):
+        raise AssertionError("%s: %d flag launches for %d force passes"
+                             % (" ".join(argv), flags, k1 or k2))
     sys.stderr.write(err)
     return k1, k2, rtime
 
 
 def phase_main_path(arena):
+    from parallel_nbody_tpu_torch.ops import cuda_step
     k1, k2, rtime = _xps_run(MAIN_N, MAIN_STEPS, [], arena)
+    flags = cuda_step.any_coincident.launches
     if k1 < MAIN_STEPS or k2 != 0 or k1.k1 != 0:
         raise AssertionError("N=%d path launched K1 %d, the symmetric pass "
                              "%d and K2 %d times"
@@ -722,7 +762,7 @@ def phase_main_path(arena):
     cpu64 = _state_table(_cli(small + ["--dtype=float64"], "cpu")[0], 1024)
     _compare_tables("N=1024 vs cpu fp32", card, cpu32, 2e-3, 1e-4)
     _compare_tables("N=1024 vs cpu fp64", card, cpu64, 5e-3, 1e-2)
-    return k1, rtime
+    return k1, rtime, flags
 
 
 def phase_main_path_streamed(arena):
@@ -2889,7 +2929,7 @@ def main() -> int:
         max_err_k2, plain_ms_k2 = phase_compare_streamed(dev)
         phase_compensated(dev)
         phase_bf16(dev)
-        phase_coincident(dev)
+        flag_times = phase_coincident(dev)
         trig_times, launches_trig_phase, max_err_trig = phase_trig(dev)
         t_wait = time.perf_counter()
         phase_cpu_ranks(cpu_ranks, cpu_arena, cpu_tmp)
@@ -2898,7 +2938,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         arena = os.path.join(tmp, "arena.ppm")
         ppm.create(arena, 1024, 768)
-        launches_k1, _ = phase_main_path(arena)
+        launches_k1, _, launches_flag = phase_main_path(arena)
         launches_k2 = phase_main_path_streamed(arena)
         launches_trig = phase_main_path_trig(arena)
         render_ms, _ = phase_render(dev)
@@ -3046,6 +3086,23 @@ def main() -> int:
         # counts it: 20 FP64 operations per unordered pair.
         "bound_ms": MAIN_N * (MAIN_N - 1) / 2 * 20 / PEAK_FP64_FLOPS * 1e3,
         "bound_by": "operations",
+        "n": MAIN_N,
+    }, {
+        "name": "coincident_kernel",
+        "route": "cuda",
+        "source": source % "coincident.cu",
+        "replaces": "none (the flag's three stable torch.sort passes; the "
+                    "JAX package's lax.sort, %s)" % replaces % 535,
+        "launches": launches_flag,
+        "ms": flag_times["uniform_n%d" % MAIN_N],
+        "plain_ms": flag_times["plain_uniform_n%d" % MAIN_N],
+        **{"ms_" + k: v for k, v in flag_times.items()
+           if not k.startswith("plain_")},
+        **{k.replace("plain_", "plain_ms_"): v for k, v in flag_times.items()
+           if k.startswith("plain_")},
+        # x, y and mass read once, 12 bytes a body in fp32.
+        "bound_ms": 12 * MAIN_N / PEAK_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
         "n": MAIN_N,
     }, dict(
         name="roofline_probe_kernel<full>",

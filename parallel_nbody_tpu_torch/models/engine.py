@@ -82,7 +82,8 @@ def make_hosted_row_step(cfg: SimConfig, n: int, row_chunk: int = 524288):
 
     Returns (step_fn, warmup): ``step_fn(state, fence=None) -> State``
     calls ``fence(xf)`` after each launch when given; ``warmup()`` builds
-    and loads the kernel library and runs no step.  On CPU tensors each
+    and loads the kernel libraries (``_build.load_step``) and runs no
+    step.  On CPU tensors each
     launch is K2's plain version.
     """
 
@@ -104,7 +105,7 @@ def make_hosted_row_step(cfg: SimConfig, n: int, row_chunk: int = 524288):
                     fence=fence))
             return _integrate(cfg, state, xf, yf)
 
-    return step_fn, _build.load
+    return step_fn, _build.load_step
 
 
 def run(cfg: SimConfig, state: State, steps: int,

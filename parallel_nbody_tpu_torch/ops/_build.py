@@ -1,6 +1,6 @@
 """Build the package's CUDA kernels at first use and load them with ctypes.
 
-Three libraries, each built on its own so that a compile error in one never
+Four libraries, each built on its own so that a compile error in one never
 blocks another, and no source's change or flag reaches the others' builds:
 
 - ``load("kernels")`` (the default): the simulation's force kernels,
@@ -12,7 +12,9 @@ blocks another, and no source's change or flag reaches the others' builds:
   into ``_build/libnbody_probes_<hash>.so``;
 - ``load("trig")``: the parity pass, ``csrc/forces_trig.cu`` (float64, the
   reference's transcendental pair math), into
-  ``_build/libnbody_trig_<hash>.so``.
+  ``_build/libnbody_trig_<hash>.so``;
+- ``load("coincident")``: the coincidence flag, ``csrc/coincident.cu`` (a
+  hash-table duplicate test), into ``_build/libnbody_coincident_<hash>.so``.
 
 ``nvcc`` compiles each source of a library to an object, all of them at
 once, and links the objects.  The sources have a plain C interface and no
@@ -25,6 +27,7 @@ raises there, with nvcc's own error output when a compile fails.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -80,6 +83,11 @@ _PROBE_ARGTYPES = [_INT] + [_VP] * 8 + [_I64] * 3 + [_VP] * 3
 # 2 outputs, stream.
 _TRIG_ARGTYPES = [_VP] * 4 + [_I64, ctypes.c_double, _VP, _VP, _VP]
 
+# The coincidence flag's launchers, one per storage type: 3 pointers (x, y,
+# mass), n, the table, its slots, the flag, stream.
+_COINCIDENT_STEM = "nbody_any_coincident"
+_COINCIDENT_ARGTYPES = [_VP] * 3 + [_I64, _VP, _I64, _VP, _VP]
+
 # library name -> (sources in csrc/, {function name: argtypes}).
 LIBRARIES = {
     "kernels": (("forces.cu", "forces_symmetric.cu", "forces_streamed.cu"),
@@ -92,6 +100,9 @@ LIBRARIES = {
                {"nbody_roofline_probe": _PROBE_ARGTYPES,
                 "nbody_bias_variants_probe": _PROBE_ARGTYPES}),
     "trig": (("forces_trig.cu",), {"nbody_trig_forces_f64": _TRIG_ARGTYPES}),
+    "coincident": (("coincident.cu",),
+                   {"%s_%s" % (_COINCIDENT_STEM, suffix): _COINCIDENT_ARGTYPES
+                    for suffix in DTYPE_SUFFIXES}),
 }
 
 
@@ -193,3 +204,14 @@ def load(name: str = "kernels") -> Library:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return Library(target, log, seconds, signatures)
+
+
+@functools.cache
+def load_step() -> None:
+    """Build and load what a fast-mode step launches on a card, the force
+    kernels and the coincidence flag, the two builds side by side so that
+    the flag's library adds no build time to a first step."""
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        for built in [pool.submit(load, name)
+                      for name in ("kernels", "coincident")]:
+            built.result()

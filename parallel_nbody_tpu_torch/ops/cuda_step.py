@@ -52,9 +52,14 @@ structure as the JAX package at every N.  K2's workspace of band partials
 grows with rows x N, so ``cuda_forces`` runs K2 in row launches that keep it
 within ``K2_WORKSPACE_BYTES`` (``streamed_forces``).
 
+``any_coincident`` (the coincidence flag, csrc/coincident.cu; the JAX
+package's is XLA's ``lax.sort``) sets one device-side 0-d bool through a
+hash table of the bodies' positions; its plain version sorts.
+
 On CUDA tensors each wrapper launches its kernel or raises; on CPU tensors
 it runs its plain PyTorch version (``block_forces_reference``,
-``block_forces_streamed_reference``, ``trig_forces_reference``).
+``block_forces_streamed_reference``, ``trig_forces_reference``,
+``any_coincident_reference``).
 """
 
 from __future__ import annotations
@@ -717,22 +722,66 @@ def _lexsort(keys) -> torch.Tensor:
     return perm
 
 
-def any_coincident(x, y, mass) -> torch.Tensor:
+def any_coincident_reference(x, y, mass) -> torch.Tensor:
     """0-d bool tensor: True iff two DISTINCT massive bodies share a position
-    exactly (pallas_step.py:535-555).  Computed on the tensors' device and
-    returned there, so the caller never waits for it.
+    exactly (pallas_step.py:535-555), on the tensors' device: the plain
+    version of ``any_coincident``'s kernel.
 
     Exact, no false negatives: a stable multi-pass lexicographic sort on
     (x, y, mass) puts equal positions adjacent and groups them by mass, so
     zero-mass padding (all at one far coordinate) never splits or fakes a
     real pair.  Signed zeros are normalized first (``+ 0.0`` maps -0.0 to
     +0.0), since the kernel's dx/dy arithmetic treats them as coincident.
+    NaN positions equal nothing, and NaN masses sort last in their group,
+    so a NaN mass fires beside a positive one and never on its own.
     """
     keys = (x + 0.0, y + 0.0, mass)
     perm = _lexsort(keys)
     xs, ys, ms = (key[perm] for key in keys)
     dup = (xs[1:] == xs[:-1]) & (ys[1:] == ys[:-1]) & (ms[:-1] > 0)
     return torch.any(dup)
+
+
+def coincident_slots(n: int) -> int:
+    """Slots of ``any_coincident``'s hash table for ``n`` bodies: the power
+    of two at or above 4n, and at least 2.  A quarter full, the longest
+    probe of 65536 bodies passes about half as many slots as at half full,
+    and the kernel lasts as long as its longest probe."""
+    return max(2, 1 << (4 * n - 1).bit_length())
+
+
+def any_coincident(x, y, mass) -> torch.Tensor:
+    """0-d bool tensor: True iff two DISTINCT massive bodies share a position
+    exactly, computed on the tensors' device and returned there, so the
+    caller never waits for it.
+
+    On a card, csrc/coincident.cu: a hash-table duplicate test in one
+    launch after one memset, into a buffer of ``coincident_slots(n)`` int32
+    slots with the flag in its last byte; each call adds one to
+    ``any_coincident.launches``.  A body takes part if its x and y are not
+    NaN and its mass is > 0 or NaN, and the flag fires where two that take
+    part meet and one has mass > 0: ``any_coincident_reference``'s answer
+    on every state, which is what CPU tensors run.
+    """
+    if x.device.type == "cpu":
+        return any_coincident_reference(x, y, mass)
+    state = (x, y, mass)
+    _check_inputs("any_coincident", state, state, False, "plain")
+    n = x.shape[0]
+    if n >= (1 << 31) - 1:
+        raise ValueError("any_coincident: %d bodies (the table holds int32 "
+                         "indices)" % n)
+    slots = coincident_slots(n)
+    buf = torch.empty(slots + 1, dtype=torch.int32, device=x.device)
+    flag = buf.view(torch.uint8)[4 * slots].view(torch.bool)
+    _launch("any_coincident", "nbody_any_coincident", x.dtype, x.device,
+            *(t.data_ptr() for t in state), n, buf.data_ptr(), slots,
+            flag.data_ptr(), library="coincident")
+    any_coincident.launches += 1
+    return flag
+
+
+any_coincident.launches = 0
 
 
 def any_coincident_tagged(x, y, mass, gid) -> torch.Tensor:
@@ -764,7 +813,11 @@ def forces_coincident_dispatch(x, y, mass, call):
     (xf, yf) — with ``biased`` the device-side ``any_coincident`` flag: the
     kernel adds the coincident kick only where the flag is set, in place of
     the JAX package's ``lax.cond`` between two kernels.  The flag is the
-    span ``nbody.coincident``, the call ``nbody.forces``."""
+    span ``nbody.coincident``, the call ``nbody.forces``.  On a card the
+    first call builds both kernels' libraries at once (``_build.load_step``;
+    later calls find them loaded)."""
+    if x.device.type == "cuda":
+        _build.load_step()
     with span("nbody.coincident"):
         biased = any_coincident(x, y, mass)
     with span("nbody.forces"):

@@ -36,9 +36,10 @@ from parallel_nbody_tpu_torch.models.engine import run
 from parallel_nbody_tpu_torch.ops import cuda_step
 from parallel_nbody_tpu_torch.state import init_state, random_state
 from parallel_nbody_tpu_torch.utils import ppm
-from torch_cases import (BLOCK_CASES, KICK, KICK_PLACEMENTS, SEGMENT_CASES,
-                         blocks, glibc_like, kick_case, probe_inputs,
-                         segment_blocks, trig_bodies)
+from torch_cases import (BLOCK_CASES, COINCIDENCE_CASES, KICK,
+                         KICK_PLACEMENTS, SEGMENT_CASES, blocks,
+                         coincidence_cases, glibc_like, kick_case,
+                         probe_inputs, segment_blocks, trig_bodies)
 
 TOL = {"float32": 2e-6, "float64": 1e-12}
 
@@ -126,15 +127,44 @@ def test_kernel_rejects_mixed_devices(dev):
     with pytest.raises(ValueError):
         cuda_step.block_forces(SimConfig(), *b, *b,
                                biased=torch.tensor(True))
+    with pytest.raises(ValueError):
+        cuda_step.any_coincident(b[0], b[1], cpu[2])
 
 
-def test_any_coincident_on_card(dev):
-    cfg = SimConfig(dtype="float32")
-    st = init_state(4096, cfg, device=dev)
-    flag = cuda_step.any_coincident(st.x, st.y, st.mass)
-    assert flag.device == st.x.device and bool(flag)
-    host = init_state(4096, cfg)
-    assert bool(cuda_step.any_coincident(host.x, host.y, host.mass))
+# The flag's card cases: torch_cases.COINCIDENCE_CASES, uniform bodies and
+# the glibc init at three sizes (coincident pairs in every dtype).
+COINCIDENCE_CARD_CASES = (sorted(COINCIDENCE_CASES)
+                          + ["uniform_65536", "glibc_4096", "glibc_65536",
+                             "glibc_1048576"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64", "bfloat16"])
+@pytest.mark.parametrize("case", COINCIDENCE_CARD_CASES)
+def test_any_coincident_on_card(case, dtype, dev):
+    """The kernel's flag (csrc/coincident.cu) is the plain version's, the
+    sort on the same tensors moved to the CPU, in one launch on the card."""
+    cfg = SimConfig(dtype=dtype)
+    if case.startswith("glibc"):
+        st = init_state(int(case.split("_")[1]), cfg, device=dev)
+        x, y, m = st.x, st.y, st.mass
+    elif case.startswith("uniform"):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        st = random_state(65536, cfg, gen, device=dev)
+        x, y, m = st.x, st.y, st.mass
+    else:
+        x, y, m = _on(coincidence_cases(case, dtype), dtype, dev)
+    before = cuda_step.any_coincident.launches
+    flag = cuda_step.any_coincident(x, y, m)
+    assert cuda_step.any_coincident.launches == before + 1
+    assert flag.device == x.device and flag.dim() == 0
+    assert flag.dtype == torch.bool
+    want = bool(cuda_step.any_coincident_reference(x.cpu(), y.cpu(),
+                                                   m.cpu()))
+    assert bool(flag) == want
+    if case in COINCIDENCE_CASES:
+        assert want == COINCIDENCE_CASES[case]
+    elif case.startswith("glibc"):
+        assert want
 
 
 def test_engine_on_card_matches_cpu(dev):
@@ -707,12 +737,15 @@ def test_cli_trace_on_card_holds_device_kernels(dev, arena, tmp_path, capsys,
 
 
 def test_step_spans_on_card_hold_every_launch(dev, tmp_path):
-    """20 steps at N=65536 in fp32 under ``utils.timing.trace``: every
+    """21 steps at N=65536 in fp32 under ``utils.timing.trace``, the first
+    left out (the trace can miss the first device operation after the
+    profiler starts, and this step's first is the flag's memset): every
     device operation launched under ``nbody.step`` was launched under
     exactly one of its three children (so the step's own device time is 0),
     the force pass (the symmetric kernel and its fold) under
-    ``nbody.forces``, and every step launches as many operations as the
-    others."""
+    ``nbody.forces``, the flag's two (one ``any_coincident`` launch a step)
+    under ``nbody.coincident``, and every step launches as many operations
+    as the others."""
     import bisect
     import glob
     import gzip
@@ -722,9 +755,11 @@ def test_step_spans_on_card_hold_every_launch(dev, tmp_path):
     st = run(cfg, init_state(65536, cfg, device=dev), 1)
     torch.cuda.synchronize()
     d = str(tmp_path / "trace")
+    flags = cuda_step.any_coincident.launches
     with timing.trace(d):
-        run(cfg, st, 20)
+        run(cfg, st, 21)
         torch.cuda.synchronize()
+    assert cuda_step.any_coincident.launches == flags + 21
     (path,) = glob.glob(d + "/*.trace.json.gz")
     with gzip.open(path, "rt") as f:
         events = [e for e in json.load(f)["traceEvents"]
@@ -736,9 +771,11 @@ def test_step_spans_on_card_hold_every_launch(dev, tmp_path):
                 and "correlation" in e.get("args", {})}
     steps = sorted((e["ts"], e["ts"] + e["dur"], e["tid"]) for e in spans
                    if e["name"] == "nbody.step")
-    assert len(steps) == 20
+    assert len(steps) == 21
+    steps = steps[1:]
     children = ("nbody.coincident", "nbody.forces", "nbody.integrate")
     per_step = [0] * len(steps)
+    flag_ops = [0] * len(steps)
     forces = {"block_forces_symmetric_kernel": 0, "band_fold_kernel": 0}
     for op in events:
         if op.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
@@ -754,6 +791,7 @@ def test_step_spans_on_card_hold_every_launch(dev, tmp_path):
         under = [e["name"] for e in spans if e["name"] in children
                  and e["tid"] == tid and e["ts"] <= t < e["ts"] + e["dur"]]
         assert len(under) == 1, (op["name"], under)
+        flag_ops[i] += under == ["nbody.coincident"]
         for kernel in forces:
             if kernel in op["name"]:
                 assert under == ["nbody.forces"]
@@ -761,6 +799,8 @@ def test_step_spans_on_card_hold_every_launch(dev, tmp_path):
     assert forces == {"block_forces_symmetric_kernel": 20,
                       "band_fold_kernel": 20}
     assert per_step[0] > 1 and len(set(per_step)) == 1, per_step
+    # The flag: its memset and its kernel.
+    assert set(flag_ops) == {2}, flag_ops
 
 
 def test_diagnostics_on_card_match_cpu(dev):

@@ -42,9 +42,10 @@ from parallel_nbody_tpu_torch.config import SimConfig
 from parallel_nbody_tpu_torch.ops import _build, cuda_step
 from parallel_nbody_tpu_torch.ops import forces as tforces
 from parallel_nbody_tpu_torch.ops import integrate as tintegrate
-from torch_cases import (BLOCK_CASES, KICK, KICK_PLACEMENTS, SEGMENT_CASES,
-                         bf16_ulps, blocks, glibc_like, kick_case,
-                         segment_blocks)
+from torch_cases import (BLOCK_CASES, COINCIDENCE_CASES, COLLIDING_KEYS, KICK,
+                         KICK_PLACEMENTS, SEGMENT_CASES, bf16_ulps, blocks,
+                         coincidence_cases, coincidence_hash, glibc_like,
+                         kick_case, segment_blocks)
 
 torch.set_num_threads(1)
 
@@ -517,6 +518,29 @@ def _coincidence_cases():
     zm = m.copy()
     zm[12] = 0.0
     cases["massless_on_real"] = (ex, ey, zm)
+    # The rule csrc/coincident.cu keeps: NaN masses fire beside a positive
+    # one only, NaN positions equal nothing.  JAX's lax.sort orders these
+    # as torch.sort does (NaN last), so every case is held to JAX.
+    nan = float("nan")
+    for name, pair in (("nan_mass_and_5", [nan, 5.0]),
+                       ("nan_masses", [nan, nan]),
+                       ("zero_and_nan_mass", [0.0, nan])):
+        nm = m.copy()
+        nm[[12, 30]] = pair
+        cases[name] = (ex, ey, nm)
+    nx, ny = x.copy(), y.copy()
+    nx[[3, 4]] = nan
+    ny[[5, 6]] = nan
+    nx[[5, 6]] = nx[7]
+    cases["nan_positions"] = (nx, ny, m)
+    nx2 = nx.copy()
+    nx2[9] = nx2[8] = nx[20]
+    ny2 = ny.copy()
+    ny2[9] = ny2[8] = ny[20]
+    cases["nan_between_a_pair"] = (nx2, ny2, m)
+    cases["one_point"] = (np.full(64, 3.0), np.full(64, 4.0), m)
+    cases["one_body"] = ([1.0], [2.0], [3.0])
+    cases["two_bodies"] = ([1.0, 1.0], [2.0, 2.0], [3.0, 0.5])
     return cases
 
 
@@ -529,5 +553,97 @@ def test_any_coincident_matches_jax(case):
     assert got.dim() == 0 and got.dtype == torch.bool
     assert bool(got) == want
     expected = case in ("signed_zero", "triple", "padding_and_pair",
-                        "mass_tie")
+                        "mass_tie", "nan_mass_and_5", "nan_between_a_pair",
+                        "one_point", "two_bodies")
     assert want == expected
+
+
+def test_any_coincident_on_cpu_runs_the_plain_version(monkeypatch):
+    """On CPU tensors the wrapper is the sort (three stable sorts) and
+    launches nothing: ``any_coincident.launches`` stays at 0."""
+    monkeypatch.setattr(cuda_step.any_coincident, "launches", 0)
+    for name, (x, y, m) in _coincidence_cases().items():
+        t = [_t(a, np.float64) for a in (x, y, m)]
+        got = cuda_step.any_coincident(*t)
+        assert bool(got) == bool(cuda_step.any_coincident_reference(*t))
+    assert cuda_step.any_coincident.launches == 0
+
+
+def _hash_rule(x, y, m, dtype, order):
+    """csrc/coincident.cu's insertion, one body at a time in ``order``:
+    (flag, the longest probe past a body's home slot).  A body takes part
+    if x and y are not NaN and its mass is > 0 or NaN; it claims the first
+    empty slot from its hash, or stops at a holder at its position, and
+    the flag fires there if either mass is > 0."""
+    slots = cuda_step.coincident_slots(len(x))
+    home = coincidence_hash(x, y, dtype) & np.uint64(slots - 1)
+    table = np.zeros(slots, np.int64)
+    flag, longest = False, 0
+    for i in order:
+        if np.isnan(x[i]) or np.isnan(y[i]) or not (m[i] > 0
+                                                    or np.isnan(m[i])):
+            continue
+        s = int(home[i])
+        for probe in range(slots):
+            if table[s] == 0:
+                table[s] = i + 1
+                break
+            j = table[s] - 1
+            if x[j] == x[i] and y[j] == y[i]:
+                flag = flag or m[i] > 0 or m[j] > 0
+                break
+            s = (s + 1) % slots
+        longest = max(longest, probe)
+    return flag, longest
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(COINCIDENCE_CASES))
+def test_hash_rule_is_the_plain_version(case, dtype):
+    """The kernel's rule, emulated in three insertion orders, gives the
+    plain version's flag on every case of the card test, in every storage
+    dtype; the "collide" cases chain COLLIDING_KEYS keys from one slot."""
+    x, y, m = coincidence_cases(case, dtype)
+    t = [_t(a, np.float64).to(getattr(torch, dtype)) for a in (x, y, m)]
+    for a, b in zip(t, (x, y, m)):
+        np.testing.assert_array_equal(_np(a.double()), b)
+    want = bool(cuda_step.any_coincident_reference(*t))
+    assert want == COINCIDENCE_CASES[case]
+    n = len(x)
+    orders = (range(n), range(n - 1, -1, -1),
+              np.random.RandomState(1).permutation(n))
+    for order in orders:
+        flag, longest = _hash_rule(x, y, m, dtype, order)
+        assert flag == want
+        if case.startswith("collide"):
+            assert longest >= COLLIDING_KEYS - 1
+
+
+def test_coincident_slots_keep_the_table_three_quarters_empty():
+    assert [cuda_step.coincident_slots(n) for n in (0, 1, 2, 3, 4, 5)] == \
+        [2, 4, 8, 16, 16, 32]
+    for n in (4095, 4096, 4097, 65536, 1048576, 26000000):
+        slots = cuda_step.coincident_slots(n)
+        assert slots & (slots - 1) == 0 and 4 * n <= slots < 8 * n
+
+
+def test_coincident_launchers_match_the_source_in_their_own_library():
+    """The flag's source belongs to the ``coincident`` library alone (the
+    force kernels' build is untouched), and each launcher's ctypes
+    signature is the C one: x, y, mass, n, the table, its slots, the flag
+    and the stream."""
+    import ctypes
+    import re
+    owners = [name for name, (files, _) in _build.LIBRARIES.items()
+              if "coincident.cu" in files]
+    assert owners == ["coincident"]
+    sigs = _build.LIBRARIES["coincident"][1]
+    assert sorted(sigs) == ["nbody_any_coincident_%s" % s
+                            for s in ("bf16", "f32", "f64")]
+    with open(os.path.join(_build._CSRC, "coincident.cu")) as f:
+        src = f.read()
+    for name, argtypes in sigs.items():
+        params = re.search(r"int %s\(([^)]*)\)" % name, src).group(1)
+        types = [" ".join(p.split()[:-1]) for p in params.split(",")]
+        assert [ctypes.c_void_p if t.endswith("*") else
+                {"int64_t": ctypes.c_int64}[t] for t in types] == argtypes

@@ -221,8 +221,9 @@ def test_tagged_equals_untagged_on_one_copy():
 
 
 def test_coincidence_flags_sort_three_times(monkeypatch):
-    """Each flag is one stable sort per key (three), every step of every
-    rank: a fourth would cost a step on the card more than the flag's
+    """Each flag's sort (``any_coincident``'s plain version, and the tagged
+    flag on every device) is one stable sort per key (three), every step of
+    every rank: a fourth would cost a step on the card more than the flag's
     whole GPU time."""
     calls = []
     real = torch.sort

@@ -163,6 +163,107 @@ def probe_inputs(n, seed, square=False):
     return rows + [a.copy() for a in rows]
 
 
+def _fmix64(k):
+    """murmur3's 64-bit finaliser on a uint64 array (csrc/coincident.cu)."""
+    for shift, mult in ((33, 0xff51afd7ed558ccd), (33, 0xc4ceb9fe1a85ec53)):
+        k = (k ^ (k >> np.uint64(shift))) * np.uint64(mult)
+    return k ^ (k >> np.uint64(33))
+
+
+def coincidence_hash(x, y, dtype):
+    """The hash csrc/coincident.cu gives positions (x, y) stored in
+    ``dtype`` ("float32", "bfloat16" or "float64"; bfloat16 hashes its
+    float32 values), as a uint64 array: the bits of the values + 0."""
+    if dtype == "float64":
+        xb, yb = (np.asarray(a, np.float64) + 0.0 for a in (x, y))
+        return _fmix64(xb.view(np.uint64) ^ _fmix64(yb.view(np.uint64)))
+    xb, yb = ((np.asarray(a, np.float32) + np.float32(0)).view(np.uint32)
+              .astype(np.uint64) for a in (x, y))
+    return _fmix64((xb << np.uint64(32)) | yb)
+
+
+# The coincidence flag's cases (``coincidence_cases``) and whether the flag
+# fires in each.
+COINCIDENCE_CASES = {
+    "distinct": False, "one_point": True, "massless": False,
+    "padding": False, "padding_and_pair": True, "signed_zero": True,
+    "nan_positions": False, "nan_mass_and_5": True, "nan_masses": False,
+    "zero_and_nan_mass": False, "pair_first": True, "pair_last": True,
+    "pair_ends": True, "n0": False, "n1": False, "n2": True,
+    "collide": False, "collide_pair": True,
+}
+# Keys of ``coincidence_cases``' "collide" cases that share a table slot.
+COLLIDING_KEYS = 48
+
+
+def coincidence_cases(name, dtype, n=4096, seed=0):
+    """float64 arrays (x, y, mass) of the case ``name`` of
+    COINCIDENCE_CASES, every value exact in ``dtype`` (bfloat16 included):
+    distinct whole-pixel positions in [10, 250)^2 and whole masses 1..8,
+    with the case's pair planted.  "padding": the last 512 bodies massless at
+    one far corner, where one real body also sits; "nan_*": a pair whose
+    masses are [NaN, 5], [NaN, NaN] or [0, NaN]; "collide": 256 bodies, of
+    which COLLIDING_KEYS distinct positions hash to one slot of the
+    kernel's table (``coincident_slots``), and "collide_pair" the last of
+    them twice."""
+    from parallel_nbody_tpu_torch.ops.cuda_step import coincident_slots
+    rng = np.random.RandomState(seed)
+    if name in ("n0", "n1", "n2"):
+        n = int(name[1])
+    elif name.startswith("collide"):
+        n = 256
+    gx, gy = np.divmod(np.arange(256 * 256, dtype=np.float64), 256)
+    inner = np.flatnonzero((np.minimum(gx, gy) >= 10)
+                           & (np.maximum(gx, gy) < 250))
+    cells = rng.permutation(inner)[:n]
+    if name.startswith("collide"):
+        mask = np.uint64(coincident_slots(n) - 1)
+        slot = coincidence_hash(gx, gy, dtype) & mask
+        top = np.bincount(slot.astype(np.int64)).argmax()
+        same = np.flatnonzero(slot == top)[:COLLIDING_KEYS]
+        rest = rng.permutation(np.setdiff1d(np.arange(256 * 256), same))
+        cells = np.concatenate([same, rest[:n - len(same)]])
+    x, y = (c.astype(np.float64) for c in np.divmod(cells, 256))
+    m = rng.randint(1, 9, n).astype(np.float64)
+
+    def plant(a, b):
+        x[b], y[b] = x[a], y[a]
+
+    nan = float("nan")
+    if name == "one_point":
+        x[:], y[:] = 37.0, 99.0
+    elif name == "massless":
+        plant(3, 70)
+        m[:] = 0.0
+    elif name.startswith("padding"):
+        x[-512:], y[-512:], m[-512:] = 255.0, 255.0, 0.0
+        x[5], y[5] = 255.0, 255.0
+        if name == "padding_and_pair":
+            plant(3, 70)
+    elif name == "signed_zero":
+        x[[9, 900]], y[[9, 900]] = [-0.0, 0.0], 5.0
+    elif name == "nan_positions":
+        x[[4, 8]] = nan
+        y[[4, 8]] = 1.0
+        x[[12, 16]] = 2.0
+        y[[12, 16]] = nan
+        x[[20, 24]] = nan
+        y[[20, 24]] = nan
+    elif name.startswith(("nan_mass", "zero_and")):
+        plant(30, 31)
+        m[[30, 31]] = {"nan_mass_and_5": [nan, 5.0], "nan_masses": [nan, nan],
+                       "zero_and_nan_mass": [0.0, nan]}[name]
+    elif name == "pair_first" or name == "n2":
+        plant(0, 1)
+    elif name == "pair_last":
+        plant(n - 2, n - 1)
+    elif name == "pair_ends":
+        plant(0, n - 1)
+    elif name == "collide_pair":
+        plant(COLLIDING_KEYS - 1, n - 1)
+    return x, y, m
+
+
 def spawned(args, timeout=180):
     """Run ``python args...`` from the repo on the CPU (NBODY_PLATFORM=cpu,
     one thread per process) in a new session: a multi-process case with a

@@ -25,18 +25,18 @@ fp32 main path to 131072 bodies) is held to its plain version at N=384,
 4097, 65536 and 131072, two passes bit-equal, the kick of each placed pair
 bit-equal to K1's and far padding exactly 0 (phase_symmetric), and timed
 beside K1 on the same bodies at 65536 and 131072.
-The parity pass (``forces_trig.cu``, its own library: float64, the
-reference's trig pair math in its per-body order) is held bit for bit to the
-dense trig path and to its plain version at N=2, 1000, 4096 and 10000 (the
-glibc init and random_state), two passes bit-equal, and to its plain version
-at 65536, then timed at N=10000 and 65536 beside the dense path at 10000
+The parity pass (``forces_trig.cu``, an object of the step library:
+float64, the reference's trig pair math in its per-body order) is held bit
+for bit to the dense trig path and to its plain version at N=2, 1000, 4096
+and 10000 (the glibc init and random_state), two passes bit-equal, and to
+its plain version at 65536, then timed at N=10000 and 65536 beside the dense path at 10000
 (phase_trig); the CLI's ``65536 0 arena 3 --no-clamp --pallas --trig``
 launches it once a step and once to warm up, no other force kernel, and
 prints the bytes of the same run with the plain version's forces
 (phase_main_path_trig, the kernel line's ``launches``).
-The coincidence flag (``coincident.cu``, its own library: a hash-table
-duplicate test in one launch after one memset) is held to its plain
-version, the three stable sorts, on the glibc init and random_state at
+The coincidence flag (``coincident.cu``, an object of the step library: a
+hash-table duplicate test in one launch after one memset) is held to its
+plain version, the three stable sorts, on the glibc init and random_state at
 N=65536 and 1048576, and both are timed there beside the kernel's bound
 (phase_coincident); the main path launches it once a force pass.
 The SASS census tells K1's and K2's three fp32 pair loops apart (unbiased,
@@ -362,14 +362,14 @@ def phase_device():
 
 
 def phase_build():
-    """Builds the force kernels, the probes, the parity pass and the
-    coincidence flag side by side (four libraries, every source's nvcc
-    started at once)."""
+    """Builds the step library (the force kernels, the parity pass and the
+    coincidence flag) and the probes side by side (two libraries, every
+    source's nvcc started at once)."""
     from parallel_nbody_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
         libs = {name: pool.submit(_build.load, name)
-                for name in ("kernels", "probes", "trig", "coincident")}
+                for name in _build.LIBRARIES}
         libs = {name: f.result() for name, f in libs.items()}
     seconds = time.perf_counter() - t0
     for name, lib in libs.items():
@@ -377,7 +377,7 @@ def phase_build():
                                             lib.path))
         if lib.build_log:
             print(lib.build_log.strip())
-    print("build: %.3f s to load all four" % seconds)
+    print("build: %.3f s to load both" % seconds)
     _probe_layout(libs["probes"])
     return seconds
 
@@ -2209,7 +2209,7 @@ def _sass_census():
         print("sass census: cuobjdump not found, skipped")
         return {}
     ipp = {}
-    for lib in ("kernels", "probes", "trig"):
+    for lib in ("kernels", "probes"):
         rows = sass_census.census(sass_census.library_sass(lib))
         roles = sass_census.loop_roles(rows)
         for row in rows:

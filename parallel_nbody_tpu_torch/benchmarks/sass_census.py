@@ -1,7 +1,7 @@
 """Instruction census of the kernels' pair loops, read from the SASS of a
 built library (``cuobjdump -sass``).
 
-    python -m parallel_nbody_tpu_torch.benchmarks.sass_census [kernels|probes|trig]
+    python -m parallel_nbody_tpu_torch.benchmarks.sass_census [kernels|probes]
 
 builds the library at first use (``ops/_build.py``) and prints one line per
 inner loop of each kernel: a loop that ends in a backward branch, reads
@@ -12,7 +12,7 @@ loops it is (``loop_roles``).  The symmetric kernel (K1's square fp32 case,
 csrc/forces_symmetric.cu) has two loops that evaluate each unordered pair
 once, for both bodies (the ones with shuffles: unbiased and constant bias),
 whose counts are per unordered pair, and K1's three loops on its diagonal
-tiles.  The parity pass (csrc/forces_trig.cu, library ``trig``) has one
+tiles.  The parity pass (csrc/forces_trig.cu) has one
 loop, a pass of which evaluates one ordered pair a thread in float64 and
 adds its group's terms; its out-of-line slow paths (the argument reduction
 of huge angles, a division's special cases) lie inside the loop's address
@@ -315,7 +315,7 @@ def library_sass(name: str) -> str:
 
 def main(argv=None) -> int:
     argv = sys.argv if argv is None else argv
-    for name in argv[1:] or ("kernels", "probes", "trig"):
+    for name in argv[1:] or ("kernels", "probes"):
         rows = census(library_sass(name))
         roles = loop_roles(rows)
         for row in rows:

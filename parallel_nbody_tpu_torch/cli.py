@@ -508,7 +508,7 @@ def _simulate(device, n, secsup, ppm_path, steps, opts, n_dev,
         if huge:
             # The kernels are only built, as the JAX CLI only compiles.
             from .ops import _build
-            _build.load_step()
+            _build.load("kernels")
         else:
             # One discarded step outside the timed region: it builds the
             # CUDA kernels (nvcc, at first use), launches the step's one,

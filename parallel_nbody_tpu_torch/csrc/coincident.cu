@@ -170,8 +170,4 @@ int nbody_any_coincident_bf16(const __nv_bfloat16* x, const __nv_bfloat16* y,
   return launch<__nv_bfloat16>(x, y, m, n, table, slots, flag, stream);
 }
 
-const char* nbody_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-
 }  // extern "C"

@@ -71,7 +71,7 @@
 // pair's roles are selects, not branches: within the diagonal tile the
 // threads of a warp take both roles.
 //
-// Build (ops/_build.py, a library of its own, load("trig")):
+// Build (ops/_build.py, library "kernels", an object of its own):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -Xcompiler -fPIC -Xptxas -v -c
 // No --use_fast_math and no -fmad=false: see the arithmetic above.
@@ -184,10 +184,6 @@ int nbody_trig_forces_f64(const double* x, const double* y, const double* m,
          static_cast<cudaStream_t>(stream)>>>(x, y, m, r, n, gravity, xf,
                                                yf);
   return static_cast<int>(cudaGetLastError());
-}
-
-const char* nbody_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // extern "C"

@@ -4,10 +4,10 @@ The reference's hot loop (nbody-seq.c:457-472) is
 ``clear_forces -> compute_forces -> compute_velocities -> compute_positions``
 with a buffer flip.  Here ``run`` is a Python loop of ``step``, each step a
 sequence of eager tensor ops on the state's device; with ``kernel="cuda"``
-the force pass is one call of a hand-written kernel (K1, or K2 above 131072
-bodies, in several row launches past K2's workspace bound; in the parity
-mode, ``force_mode="trig"`` in float64, the parity pass at any N;
-ops/cuda_step.cuda_forces).  Nothing in the
+the force pass is ``ops/cuda_step.step_forces`` of ``cuda_forces``, which
+chooses the hand-written kernels (K1, or K2 above 131072 bodies, in several
+row launches past K2's workspace bound; in the parity mode,
+``force_mode="trig"`` in float64, the parity pass at any N).  Nothing in the
 loop reads a value back to the host, so on a GPU the launches queue without
 waiting for the device (the NaN-check debug mode of ``run`` aside).
 
@@ -17,12 +17,13 @@ launches of a chunk the caller sets, at any N.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..config import SimConfig
 from ..ops import _build
-from ..ops.cuda_step import (cuda_forces, forces_coincident_dispatch,
-                             streamed_forces)
+from ..ops.cuda_step import cuda_forces, step_forces, streamed_forces
 from ..ops.forces import compute_forces_dense
 from ..ops.integrate import compute_positions, compute_velocities
 from ..state import State
@@ -35,26 +36,21 @@ def step(cfg: SimConfig, state: State) -> State:
     ``nbody.step``: every operation it launches lies under one of its
     children ``nbody.coincident``, ``nbody.forces`` or ``nbody.integrate``
     (``utils.timing.span``)."""
+    return _step(cfg, state, cuda_forces if cfg.kernel == "cuda" else None)
+
+
+def _step(cfg: SimConfig, state: State, forces) -> State:
+    """``step``'s body with the card's square force pass ``forces``
+    (``cuda_step.step_forces`` runs it), or the dense pass where it is
+    None."""
     with span("nbody.step"):
-        if cfg.kernel == "cuda" and cfg.force_mode == "fast":
-            # The coincidence flag stays on the device: the kernel reads it
-            # and adds the reference's atan2(0,0) kick (nbody-seq.c:91-106)
-            # only on steps that hold coincident distinct bodies.
-            xf, yf = forces_coincident_dispatch(
-                state.x, state.y, state.mass,
-                lambda biased: cuda_forces(cfg, state.x, state.y,
-                                           state.mass, state.radius,
-                                           biased=biased, accum=cfg.accum))
-        else:
-            # The trig formula makes that kick by itself, so the parity
-            # pass, like the dense path, runs no coincidence flag.
+        if forces is None:
             with span("nbody.forces"):
-                if cfg.kernel == "cuda":
-                    xf, yf = cuda_forces(cfg, state.x, state.y, state.mass,
-                                         state.radius, biased=False)
-                else:
-                    xf, yf = compute_forces_dense(cfg, state.x, state.y,
-                                                  state.mass, state.radius)
+                xf, yf = compute_forces_dense(cfg, state.x, state.y,
+                                              state.mass, state.radius)
+        else:
+            xf, yf = step_forces(cfg, state.x, state.y, state.mass,
+                                 state.radius, forces)
         return _integrate(cfg, state, xf, yf)
 
 
@@ -82,9 +78,8 @@ def make_hosted_row_step(cfg: SimConfig, n: int, row_chunk: int = 524288):
 
     Returns (step_fn, warmup): ``step_fn(state, fence=None) -> State``
     calls ``fence(xf)`` after each launch when given; ``warmup()`` builds
-    and loads the kernel libraries (``_build.load_step``) and runs no
-    step.  On CPU tensors each
-    launch is K2's plain version.
+    and loads the kernel library (``_build.load("kernels")``) and runs no
+    step.  On CPU tensors each launch is K2's plain version.
     """
 
     if cfg.force_mode != "fast":
@@ -96,16 +91,10 @@ def make_hosted_row_step(cfg: SimConfig, n: int, row_chunk: int = 524288):
         if state.x.shape[0] != n:
             raise ValueError("make_hosted_row_step: a step of %d bodies got "
                              "%d" % (n, state.x.shape[0]))
-        with span("nbody.step"):
-            xf, yf = forces_coincident_dispatch(
-                state.x, state.y, state.mass,
-                lambda biased: streamed_forces(
-                    cfg, state.x, state.y, state.mass, state.radius,
-                    biased=biased, accum=cfg.accum, row_chunk=row_chunk,
-                    fence=fence))
-            return _integrate(cfg, state, xf, yf)
+        return _step(cfg, state, functools.partial(
+            streamed_forces, row_chunk=row_chunk, fence=fence))
 
-    return step_fn, _build.load_step
+    return step_fn, lambda: _build.load("kernels")
 
 
 def run(cfg: SimConfig, state: State, steps: int,

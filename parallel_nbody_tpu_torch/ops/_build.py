@@ -1,33 +1,31 @@
 """Build the package's CUDA kernels at first use and load them with ctypes.
 
-Four libraries, each built on its own so that a compile error in one never
-blocks another, and no source's change or flag reaches the others' builds:
+Two libraries, each built on its own so that a compile error in one never
+blocks the other, and no source's change or flag reaches the other's build:
 
-- ``load("kernels")`` (the default): the simulation's force kernels,
+- ``load("kernels")`` (the default): everything a step launches,
   ``csrc/forces.cu`` (K1), ``csrc/forces_symmetric.cu`` (K1's square fp32
-  case, each pair once) and ``csrc/forces_streamed.cu`` (K2), into
+  case, each pair once), ``csrc/forces_streamed.cu`` (K2),
+  ``csrc/forces_trig.cu`` (the parity pass: float64, the reference's
+  transcendental pair math) and ``csrc/coincident.cu`` (the coincidence
+  flag, a hash-table duplicate test), into
   ``_build/libnbody_kernels_<hash>.so``;
 - ``load("probes")``: the roofline and coincident-bias probes,
   ``csrc/roofline_probe.cu`` (P1) and ``csrc/bias_variants_probe.cu`` (P2),
-  into ``_build/libnbody_probes_<hash>.so``;
-- ``load("trig")``: the parity pass, ``csrc/forces_trig.cu`` (float64, the
-  reference's transcendental pair math), into
-  ``_build/libnbody_trig_<hash>.so``;
-- ``load("coincident")``: the coincidence flag, ``csrc/coincident.cu`` (a
-  hash-table duplicate test), into ``_build/libnbody_coincident_<hash>.so``.
+  into ``_build/libnbody_probes_<hash>.so``.
 
-``nvcc`` compiles each source of a library to an object, all of them at
-once, and links the objects.  The sources have a plain C interface and no
-PyTorch headers, so a build takes seconds.  A library's hash covers its
-sources, the headers and the flags: a changed source builds a new library
-and an unchanged one is loaded as built.  Nothing here runs at import time,
-so the package imports on machines without ``nvcc`` or a GPU; ``load()``
-raises there, with nvcc's own error output when a compile fails.
+``nvcc`` compiles each source of a library to its own object, all of them at
+once, and links the objects without device LTO, so a kernel's SASS depends on
+its own source and headers alone.  The sources have a plain C interface and
+no PyTorch headers, so a build takes seconds.  A library's hash covers its
+sources, the headers they include and the flags: a changed source builds a
+new library and an unchanged one is loaded as built.  Nothing here runs at
+import time, so the package imports on machines without ``nvcc`` or a GPU;
+``load()`` raises there, with nvcc's own error output when a compile fails.
 """
 
 from __future__ import annotations
 
-import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -39,8 +37,6 @@ import time
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
-HEADERS = tuple(os.path.join(_CSRC, h)
-                for h in ("pairs.cuh", "probe_layout.cuh"))
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
 # No --use_fast_math (see the note in csrc/pairs.cuh).  -Xptxas -v makes
@@ -88,21 +84,24 @@ _TRIG_ARGTYPES = [_VP] * 4 + [_I64, ctypes.c_double, _VP, _VP, _VP]
 _COINCIDENT_STEM = "nbody_any_coincident"
 _COINCIDENT_ARGTYPES = [_VP] * 3 + [_I64, _VP, _I64, _VP, _VP]
 
-# library name -> (sources in csrc/, {function name: argtypes}).
+# library name -> (sources in csrc/, the headers in csrc/ that they include,
+# {function name: argtypes}).
 LIBRARIES = {
-    "kernels": (("forces.cu", "forces_symmetric.cu", "forces_streamed.cu"),
+    "kernels": (("forces.cu", "forces_symmetric.cu", "forces_streamed.cu",
+                 "forces_trig.cu", "coincident.cu"),
+                ("pairs.cuh",),
                 {**{"%s_%s" % (stem, suffix): argtypes
                     for stem, argtypes in _KERNEL_STEMS.items()
                     for suffix in DTYPE_SUFFIXES},
                  **{"%s_%s" % (_SYMMETRIC_STEM, suffix): _SYMMETRIC_ARGTYPES
-                    for suffix in ("f32", "bf16")}}),
+                    for suffix in ("f32", "bf16")},
+                 "nbody_trig_forces_f64": _TRIG_ARGTYPES,
+                 **{"%s_%s" % (_COINCIDENT_STEM, suffix): _COINCIDENT_ARGTYPES
+                    for suffix in DTYPE_SUFFIXES}}),
     "probes": (("roofline_probe.cu", "bias_variants_probe.cu"),
+               ("probe_layout.cuh", "pairs.cuh"),
                {"nbody_roofline_probe": _PROBE_ARGTYPES,
                 "nbody_bias_variants_probe": _PROBE_ARGTYPES}),
-    "trig": (("forces_trig.cu",), {"nbody_trig_forces_f64": _TRIG_ARGTYPES}),
-    "coincident": (("coincident.cu",),
-                   {"%s_%s" % (_COINCIDENT_STEM, suffix): _COINCIDENT_ARGTYPES
-                    for suffix in DTYPE_SUFFIXES}),
 }
 
 
@@ -119,7 +118,7 @@ class Library:
             fn = getattr(self.cdll, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        # Every library defines its own copy of the error-string function.
+        # Every library defines the error-string function once.
         self.cdll.nbody_cuda_error_string.argtypes = [ctypes.c_int]
         self.cdll.nbody_cuda_error_string.restype = ctypes.c_char_p
 
@@ -143,12 +142,15 @@ def _nvcc() -> str:
     return found
 
 
-def _source_hash(sources) -> str:
+def _library_hash(name: str) -> str:
+    """The hash of the flags and of library ``name``'s sources and headers,
+    names and contents."""
+    files, headers, _ = LIBRARIES[name]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources + HEADERS:
-        h.update(os.path.basename(src).encode())
-        with open(src, "rb") as f:
-            h.update(f.read())
+    for f in files + headers:
+        h.update(f.encode())
+        with open(os.path.join(_CSRC, f), "rb") as src:
+            h.update(src.read())
     return h.hexdigest()[:16]
 
 
@@ -172,10 +174,10 @@ def load(name: str = "kernels") -> Library:
     """Build (unless already built from these sources) and load the library
     ``name`` of ``LIBRARIES``.  Raises RuntimeError if nvcc is missing or
     fails."""
-    files, signatures = LIBRARIES[name]
-    sources = tuple(os.path.join(_CSRC, f) for f in files)
+    files, _, signatures = LIBRARIES[name]
+    sources = [os.path.join(_CSRC, f) for f in files]
     target = os.path.join(BUILD_DIR, "libnbody_%s_%s.so"
-                          % (name, _source_hash(sources)))
+                          % (name, _library_hash(name)))
     if os.path.exists(target):
         return Library(target, "", 0.0, signatures)
     nvcc = _nvcc()
@@ -204,14 +206,3 @@ def load(name: str = "kernels") -> Library:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return Library(target, log, seconds, signatures)
-
-
-@functools.cache
-def load_step() -> None:
-    """Build and load what a fast-mode step launches on a card, the force
-    kernels and the coincidence flag, the two builds side by side so that
-    the flag's library adds no build time to a first step."""
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        for built in [pool.submit(load, name)
-                      for name in ("kernels", "coincident")]:
-            built.result()

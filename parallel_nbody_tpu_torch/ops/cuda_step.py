@@ -44,13 +44,16 @@ rounded to bfloat16 once (``pallas_step._compute_dtype``).
   trig path.  The kick of a coincident pair is atan2(0, 0)'s own, so it
   takes no flag.
 
-``cuda_forces`` and ``block_forces_auto`` dispatch as ``pallas_forces`` and
-``pallas_block_forces_auto`` do: K2 above ``STREAMED_ABOVE`` bodies.  On the
-H100 that threshold is no memory limit (K1 streams its column tiles from
-device memory at any N); it is kept so that the port sums in the same
-structure as the JAX package at every N.  K2's workspace of band partials
-grows with rows x N, so ``cuda_forces`` runs K2 in row launches that keep it
-within ``K2_WORKSPACE_BYTES`` (``streamed_forces``).
+``block_forces_auto`` is the one place that picks K1 or K2, for every block
+pair, as ``pallas_block_forces_auto`` does: K2 when either block holds more
+than ``STREAMED_ABOVE`` bodies.  On the H100 that threshold is no memory
+limit (K1 streams its column tiles from device memory at any N); it is kept
+so that the port sums in the same structure as the JAX package at every N.
+K2's workspace of band partials grows with rows x columns, so K2 runs in row
+launches that keep it within ``K2_WORKSPACE_BYTES`` (``streamed_forces``).
+``cuda_forces``, the single-device pass, is the parity pass in the parity
+mode and ``block_forces_auto`` of the bodies against themselves otherwise;
+``step_forces`` adds the coincidence flag a fast-mode step takes.
 
 ``any_coincident`` (the coincidence flag, csrc/coincident.cu; the JAX
 package's is XLA's ``lax.sort``) sets one device-side 0-d bool through a
@@ -387,11 +390,11 @@ def _flag_args(biased):
     return None, int(bool(biased))
 
 
-def _launch(name, stem, dtype, device, *args, library="kernels"):
-    """Call the C launcher ``stem`` of the library ``library`` for storage
+def _launch(name, stem, dtype, device, *args):
+    """Call the C launcher ``stem`` of the kernel library for storage
     ``dtype`` on the device's current stream; raise if the launch was
     refused."""
-    lib = _build.load(library)
+    lib = _build.load("kernels")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.fn(stem, _SUFFIX[dtype])(*args, stream)
@@ -537,8 +540,9 @@ def block_forces_auto(cfg: SimConfig, xi, yi, mi, ri, xj, yj, mj, rj, *,
                       row_g0: int = 0, col_g0: int = 0, biased,
                       accum: str = "plain"):
     """K1 or K2 by block size, as ``pallas_block_forces_auto`` chooses: K2
-    when either block holds more than ``STREAMED_ABOVE`` bodies."""
-    fn = (block_forces_streamed
+    in row launches (``streamed_forces``) when either block holds more than
+    ``STREAMED_ABOVE`` bodies, else ``block_forces``."""
+    fn = (streamed_forces
           if max(xi.shape[0], xj.shape[0]) > STREAMED_ABOVE else block_forces)
     return fn(cfg, xi, yi, mi, ri, xj, yj, mj, rj, row_g0=row_g0,
               col_g0=col_g0, biased=biased, accum=accum)
@@ -554,28 +558,29 @@ def streamed_rows(k: int, dtype) -> int:
     return max(TILE, K2_WORKSPACE_BYTES // per_row // TILE * TILE)
 
 
-def streamed_forces(cfg: SimConfig, x, y, mass, radius, *, biased,
-                    accum: str = "plain", row_chunk: int | None = None,
-                    fence=None):
-    """Total pairwise forces (square case) through K2, the rows in launches
-    of ``row_chunk`` (None: ``streamed_rows``; the last launch takes the
-    rest), each against all columns at its global offset ``row_g0``.
+def streamed_forces(cfg: SimConfig, xi, yi, mi, ri, *cols, row_g0: int = 0,
+                    col_g0: int = 0, biased, accum: str = "plain",
+                    row_chunk: int | None = None, fence=None):
+    """K2 of the column block ``cols`` (xj, yj, mj, rj; none given: the rows
+    themselves, the square case) on the row block, the rows in launches of
+    ``row_chunk`` (None: ``streamed_rows``; the last launch takes the rest),
+    each at its global offset ``row_g0 + r0``.
 
-    The chunks bound K2's workspace: over all N rows at once it is about
-    N**2 / 8192 bytes in fp32, 89 GB at N=27M, past the H100's 85 GB of
-    device memory.  Each row
-    sums its columns band by band in an order that does not depend on the
-    rows that share its launch, so chunks that start at multiples of
-    ``TILE`` (which keeps the bias segments' row blocks) give one launch's
-    forces bit for bit.  ``fence(xf)`` is called after each launch when
-    given."""
-    n = x.shape[0]
-    cols = (x, y, mass, radius)
-    step = row_chunk or streamed_rows(n, x.dtype)
+    The chunks bound K2's workspace: over all N rows of a square at once it
+    is about N**2 / 8192 bytes in fp32, 89 GB at N=27M, past the H100's
+    85 GB of device memory.  Each row sums its columns band by band in an
+    order that does not depend on the rows that share its launch, so chunks
+    that start at multiples of ``TILE`` (which keeps the bias segments' row
+    blocks) give one launch's forces bit for bit.  ``fence(xf)`` is called
+    after each launch when given."""
+    rows = (xi, yi, mi, ri)
+    cols = cols or rows
+    step = row_chunk or streamed_rows(cols[0].shape[0], xi.dtype)
     fxs, fys = [], []
-    for r0 in range(0, n, step):
-        fx, fy = block_forces_streamed(cfg, *(t[r0:r0 + step] for t in cols),
-                                       *cols, row_g0=r0, biased=biased,
+    for r0 in range(0, max(xi.shape[0], 1), step):
+        fx, fy = block_forces_streamed(cfg, *(t[r0:r0 + step] for t in rows),
+                                       *cols, row_g0=row_g0 + r0,
+                                       col_g0=col_g0, biased=biased,
                                        accum=accum)
         if fence is not None:
             fence(fx)
@@ -688,7 +693,7 @@ def trig_forces(cfg: SimConfig, x, y, mass, radius):
         return xf, yf
     _launch("trig_forces", "nbody_trig_forces", x.dtype, x.device,
             *(t.data_ptr() for t in state), n, float(cfg.gravity),
-            xf.data_ptr(), yf.data_ptr(), library="trig")
+            xf.data_ptr(), yf.data_ptr())
     trig_forces.launches += 1
     return xf, yf
 
@@ -699,17 +704,13 @@ trig_forces.launches = 0
 def cuda_forces(cfg: SimConfig, x, y, mass, radius, *, biased,
                 accum: str = "plain"):
     """Total pairwise forces (square case), as ``pallas_forces`` computes
-    them: K2 with band ``STREAM_BAND`` above ``STREAMED_ABOVE`` bodies, in
-    row launches (``streamed_forces``), K1 otherwise.  With
+    them: ``block_forces_auto`` of the bodies against themselves.  With
     ``force_mode="trig"`` it is the parity pass (``trig_forces``) at any N,
     which reads neither ``biased`` nor ``accum``."""
     if cfg.force_mode == "trig":
         return trig_forces(cfg, x, y, mass, radius)
-    if x.shape[0] > STREAMED_ABOVE:
-        return streamed_forces(cfg, x, y, mass, radius, biased=biased,
-                               accum=accum)
-    return block_forces(cfg, x, y, mass, radius, x, y, mass, radius,
-                        biased=biased, accum=accum)
+    state = (x, y, mass, radius)
+    return block_forces_auto(cfg, *state, *state, biased=biased, accum=accum)
 
 
 def _lexsort(keys) -> torch.Tensor:
@@ -776,7 +777,7 @@ def any_coincident(x, y, mass) -> torch.Tensor:
     flag = buf.view(torch.uint8)[4 * slots].view(torch.bool)
     _launch("any_coincident", "nbody_any_coincident", x.dtype, x.device,
             *(t.data_ptr() for t in state), n, buf.data_ptr(), slots,
-            flag.data_ptr(), library="coincident")
+            flag.data_ptr())
     any_coincident.launches += 1
     return flag
 
@@ -813,12 +814,26 @@ def forces_coincident_dispatch(x, y, mass, call):
     (xf, yf) — with ``biased`` the device-side ``any_coincident`` flag: the
     kernel adds the coincident kick only where the flag is set, in place of
     the JAX package's ``lax.cond`` between two kernels.  The flag is the
-    span ``nbody.coincident``, the call ``nbody.forces``.  On a card the
-    first call builds both kernels' libraries at once (``_build.load_step``;
-    later calls find them loaded)."""
-    if x.device.type == "cuda":
-        _build.load_step()
+    span ``nbody.coincident``, the call ``nbody.forces``."""
     with span("nbody.coincident"):
         biased = any_coincident(x, y, mass)
     with span("nbody.forces"):
         return call(biased)
+
+
+def step_forces(cfg: SimConfig, x, y, mass, radius, forces):
+    """The force pass of one step on the card: ``forces(cfg, x, y, mass,
+    radius, biased=, accum=)``, ``cuda_forces`` or a square pass of the
+    caller's, under the span ``nbody.forces``.
+
+    A fast-mode step hands it the device-side ``any_coincident`` flag
+    through ``forces_coincident_dispatch``: the kernel adds the reference's
+    atan2(0, 0) kick (nbody-seq.c:91-106) only on steps that hold
+    coincident distinct bodies.  The parity mode's trig formula makes that
+    kick by itself, so, like the dense path, it runs no flag."""
+    if cfg.force_mode == "trig":
+        with span("nbody.forces"):
+            return forces(cfg, x, y, mass, radius, biased=False)
+    return forces_coincident_dispatch(
+        x, y, mass, lambda biased: forces(cfg, x, y, mass, radius,
+                                          biased=biased, accum=cfg.accum))

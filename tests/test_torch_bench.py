@@ -23,8 +23,7 @@ from parallel_nbody_tpu.models import engine as jengine
 from parallel_nbody_tpu.state import State as JaxState
 from parallel_nbody_tpu_torch.benchmarks import (autotune, bench,
                                                  bf16_stream_probe, huge_n,
-                                                 kernel_ab, perf_gate,
-                                                 ring_bias_probe,
+                                                 perf_gate, ring_bias_probe,
                                                  run_benchmarks)
 from parallel_nbody_tpu_torch.config import SimConfig
 from parallel_nbody_tpu_torch.ops import cuda_step
@@ -257,15 +256,6 @@ def test_tools_exit_1_without_a_card(tool, monkeypatch, capsys):
     assert "no CUDA device is available" in out.err
     assert tool.main(["tool", "--device=tpu"]) == 1
     assert "unsupported device" in capsys.readouterr().err
-
-
-def test_kernel_ab_exits_1_without_a_card(monkeypatch, capsys):
-    """The parent-against-change timer has no CPU mode at all."""
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert kernel_ab.main(["kernel_ab", "change"]) == 1
-    out = capsys.readouterr()
-    assert out.out == ""
-    assert "no CUDA device is available" in out.err
 
 
 def test_bench_module_exits_1_without_a_card():

@@ -18,7 +18,10 @@ from parallel_nbody_tpu.models import engine as jengine
 from parallel_nbody_tpu.state import init_state as jax_init_state
 from parallel_nbody_tpu_torch import cli
 from parallel_nbody_tpu_torch.config import SimConfig
+from parallel_nbody_tpu_torch.models import engine
 from parallel_nbody_tpu_torch.models.engine import run
+from parallel_nbody_tpu_torch.ops import cuda_step
+from parallel_nbody_tpu_torch.parallel import sharded_step
 from parallel_nbody_tpu_torch.state import init_state
 from parallel_nbody_tpu_torch.utils import checkpoint as ckpt
 from parallel_nbody_tpu_torch.utils import ppm
@@ -289,6 +292,98 @@ def test_accum_reaches_kernel_through_engine(monkeypatch):
                     accum="compensated")
     engine.step(cfg, init_state(128, cfg))
     assert seen == ["compensated"]
+
+
+# ---------------------------------------------------------------------------
+# the card's force seam (ops.cuda_step.step_forces), on the kernels' plain
+# versions: K2 forced at N=300 in launches of 128 rows
+# ---------------------------------------------------------------------------
+
+def _rows_of_one_tile(monkeypatch):
+    """K2 above 64 bodies, 128 rows a launch against up to 384 columns."""
+    monkeypatch.setattr(cuda_step, "STREAMED_ABOVE", 64)
+    monkeypatch.setattr(cuda_step, "K2_WORKSPACE_BYTES", cuda_step.TILE * 8)
+
+
+def _hosted(cfg, st):
+    step_fn, _ = engine.make_hosted_row_step(cfg, st.n, row_chunk=128)
+    return step_fn(st)
+
+
+def _allgather_rank(cfg, st):
+    """Rank 1 of 2's all-gather pass: its half of the bodies against all."""
+    h = st.n // 2
+    return sharded_step._local_forces_allgather(
+        cfg, st.x[h:], st.y[h:], st.mass[h:], st.radius[h:], st.x, st.y,
+        st.mass, st.radius, 1)
+
+
+@pytest.mark.parametrize("mode, path, flags", [
+    ("fast", engine.step, 1), ("fast", _hosted, 1),
+    ("fast", _allgather_rank, 1), ("trig", engine.step, 0)])
+def test_coincidence_flag_runs_once_a_step(mode, path, flags, monkeypatch):
+    """``any_coincident`` runs once a fast-mode step on every card path,
+    however many K2 launches its force pass makes, and never in the parity
+    mode, whose trig formula makes the coincident kick by itself."""
+    _rows_of_one_tile(monkeypatch)
+    calls, launches = [], []
+    flag, k2 = cuda_step.any_coincident, cuda_step.block_forces_streamed
+
+    def count(log, fn):
+        def counted(*a, **kw):
+            log.append(1)
+            return fn(*a, **kw)
+        return counted
+
+    monkeypatch.setattr(cuda_step, "any_coincident", count(calls, flag))
+    monkeypatch.setattr(cuda_step, "block_forces_streamed",
+                        count(launches, k2))
+    dtype = "float64" if mode == "trig" else "float32"
+    cfg = SimConfig(force_mode=mode, dtype=dtype, kernel="cuda")
+    path(cfg, init_state(300, cfg))
+    assert len(calls) == flags
+    assert len(launches) == (0 if mode == "trig" else
+                             2 if path is _allgather_rank else 3)
+
+
+@pytest.mark.parametrize("mode, n", [("fast", 64), ("fast", 300),
+                                     ("trig", 64)])
+def test_step_force_pass_lies_under_cuda_forces(mode, n, monkeypatch):
+    """The frames that the benchmark's per-layer metrics read: every force
+    computation of ``engine.step`` (K1, K2 in row launches, the parity
+    pass) runs inside ``cuda_forces``, and the coincidence flag inside
+    ``any_coincident`` and no frame of the force pass."""
+    import inspect
+    _rows_of_one_tile(monkeypatch)
+    force_frames = {"cuda_forces", "streamed_forces", "block_forces",
+                    "block_forces_streamed"}
+    stacks = {}
+
+    def spy(name):
+        fn = getattr(cuda_step, name)
+
+        def wrapped(*a, **kw):
+            stacks.setdefault(name, []).append(
+                {f.function for f in inspect.stack()})
+            return fn(*a, **kw)
+        monkeypatch.setattr(cuda_step, name, wrapped)
+
+    for name in ("block_forces_reference", "block_forces_streamed_reference",
+                 "trig_forces_reference", "any_coincident_reference"):
+        spy(name)
+    dtype = "float64" if mode == "trig" else "float32"
+    cfg = SimConfig(force_mode=mode, dtype=dtype, kernel="cuda")
+    engine.step(cfg, init_state(n, cfg))
+    flags = stacks.pop("any_coincident_reference", [])
+    assert len(flags) == (mode == "fast")
+    for frames in flags:
+        assert "any_coincident" in frames and not frames & force_frames
+    assert list(stacks) == [{"trig": "trig_forces_reference",
+                             64: "block_forces_reference",
+                             300: "block_forces_streamed_reference"}[
+                                 "trig" if mode == "trig" else n]]
+    for frames in next(iter(stacks.values())):
+        assert "cuda_forces" in frames and "any_coincident" not in frames
 
 
 def test_compensated_matches_plain_on_normal_state():

@@ -475,6 +475,40 @@ def test_block_forces_rejects(bad):
         cuda_step.block_forces(SimConfig(), *b, *b, **kw)
 
 
+@pytest.mark.parametrize("name", ["kernels", "probes"])
+def test_build_compiles_each_source_to_its_own_object(name, monkeypatch,
+                                                      tmp_path):
+    """``load`` starts one nvcc a source, each with the same NVCC_FLAGS and
+    ``-c`` (no relocatable device code, no device LTO), and links the
+    objects: a kernel's SASS is what its own source compiles to, whatever
+    else its library holds."""
+    runs = []
+
+    def run_all(cmds):
+        runs.append(cmds)
+        return ([(cmds[0], 1, "stopped")] if len(runs) == 2 else []), ""
+
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build, "_run_all", run_all)
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    _build.load.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="stopped"):
+            _build.load(name)
+    finally:
+        _build.load.cache_clear()
+    compiles, (link,) = runs
+    files = _build.LIBRARIES[name][0]
+    assert len(compiles) == len(files)
+    objs = [cmd[-2] for cmd in compiles]
+    for cmd, obj, f in zip(compiles, objs, files):
+        assert cmd == ["nvcc", *_build.NVCC_FLAGS, "-c", "-o", obj,
+                       os.path.join(_build._CSRC, f)]
+    assert len(set(objs)) == len(objs)
+    assert link == ["nvcc", "-shared", "-o", link[3], *objs]
+    assert not any("lto" in f or "rdc" in f for f in _build.NVCC_FLAGS)
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))
@@ -628,16 +662,18 @@ def test_coincident_slots_keep_the_table_three_quarters_empty():
 
 
 def test_coincident_launchers_match_the_source_in_their_own_library():
-    """The flag's source belongs to the ``coincident`` library alone (the
-    force kernels' build is untouched), and each launcher's ctypes
+    """The flag's source belongs to the step library alone (``kernels``,
+    where it compiles to its own object), and each launcher's ctypes
     signature is the C one: x, y, mass, n, the table, its slots, the flag
     and the stream."""
     import ctypes
     import re
-    owners = [name for name, (files, _) in _build.LIBRARIES.items()
+    owners = [name for name, (files, _, _) in _build.LIBRARIES.items()
               if "coincident.cu" in files]
-    assert owners == ["coincident"]
-    sigs = _build.LIBRARIES["coincident"][1]
+    assert owners == ["kernels"]
+    sigs = {name: argtypes
+            for name, argtypes in _build.LIBRARIES["kernels"][2].items()
+            if name.startswith("nbody_any_coincident")}
     assert sorted(sigs) == ["nbody_any_coincident_%s" % s
                             for s in ("bf16", "f32", "f64")]
     with open(os.path.join(_build._CSRC, "coincident.cu")) as f:

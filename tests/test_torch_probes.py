@@ -182,22 +182,37 @@ def test_layout_constants_match_the_header():
 
 
 def test_build_hashes_every_header_and_the_defines(tmp_path, monkeypatch):
-    """Every header under csrc/ is hashed, so a change to one, such as
-    another layout's definitions in probe_layout.cuh, builds a new library
-    instead of loading a stale one."""
+    """Each library hashes the headers under csrc/ that its sources
+    include, directly or through another header, and no other, and every
+    header is hashed by some library: a change to one, such as another
+    layout's definitions in probe_layout.cuh, builds a new probes library
+    instead of loading a stale one, and leaves the step library's hash as
+    it is."""
+    import re
+    import shutil
     from parallel_nbody_tpu_torch.ops import _build
-    headers = {f for f in os.listdir(CSRC) if f.endswith(".cuh")}
-    assert {os.path.basename(h) for h in _build.HEADERS} == headers
-    sources = tuple(os.path.join(CSRC, f)
-                    for f in _build.LIBRARIES["probes"][0])
-    before = _build._source_hash(sources)
-    edited = tmp_path / "probe_layout.cuh"
-    with open(os.path.join(CSRC, "probe_layout.cuh")) as f:
-        edited.write_text(f.read().replace("kSplit = 2;", "kSplit = 4;"))
-    monkeypatch.setattr(_build, "HEADERS", tuple(
-        str(edited) if h.endswith("probe_layout.cuh") else h
-        for h in _build.HEADERS))
-    assert _build._source_hash(sources) != before
+
+    def includes(name):
+        with open(os.path.join(CSRC, name)) as f:
+            return set(re.findall(r'#include "([^"]+)"', f.read()))
+
+    hashed = set()
+    for files, headers, _ in _build.LIBRARIES.values():
+        seen, todo = set(), set(files)
+        while todo:
+            todo = set().union(*map(includes, todo)) - seen
+            seen |= todo
+        assert sorted(headers) == sorted(seen)
+        hashed |= seen
+    assert hashed == {f for f in os.listdir(CSRC) if f.endswith(".cuh")}
+    before = {name: _build._library_hash(name) for name in _build.LIBRARIES}
+    edited = tmp_path / "csrc"
+    shutil.copytree(CSRC, edited)
+    layout = edited / "probe_layout.cuh"
+    layout.write_text(layout.read_text().replace("kSplit = 2;", "kSplit = 4;"))
+    monkeypatch.setattr(_build, "_CSRC", str(edited))
+    assert _build._library_hash("probes") != before["probes"]
+    assert _build._library_hash("kernels") == before["kernels"]
 
 
 @pytest.mark.parametrize("variant", [v for v in tbias.VARIANTS if v != "r2"])

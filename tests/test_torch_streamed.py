@@ -209,6 +209,50 @@ def test_streamed_row_chunks_with_row_g0_match_square():
     _assert_close_to_max(want, jax_want, 1e-5)
 
 
+@pytest.mark.parametrize("accum", ["plain", "compensated"])
+@pytest.mark.parametrize("rows, cols", [((256, 512), (0, 512)),
+                                        ((128, 384), (384, 512))])
+def test_rank_k2_row_launches_match_one_launch(rows, cols, accum,
+                                               monkeypatch):
+    """A rank's K2 block through ``block_forces_auto``, with the threshold
+    and K2's workspace bound lowered so that it runs in row launches of one
+    tile: an all-gather rank's rows against every body, and a ring rank's
+    rows against a visiting block.  The launches start at ``row_g0`` plus
+    whole tiles and give one launch of the plain version bit for bit, with
+    a row of each launch on a column's position."""
+    pairs = ((rows[0] + 3, cols[0] + 5), (rows[0] + 130, cols[0] + 9))
+    b = [a.astype(np.float32) for a in glibc_like(512, 7, pairs)]
+    state = list(map(_t, b))
+    rb = [t[slice(*rows)] for t in state]
+    cb = [t[slice(*cols)] for t in state]
+    cfg = _cfg("float32")
+    want = cuda_step.block_forces_streamed_reference(
+        cfg, *rb, *cb, row_g0=rows[0], col_g0=cols[0], biased=True,
+        accum=accum)
+    launches = []
+    plain = cuda_step.block_forces_streamed_reference
+
+    def spy(cfg, xi, *a, **kw):
+        launches.append((kw["row_g0"], xi.shape[0]))
+        return plain(cfg, xi, *a, **kw)
+
+    monkeypatch.setattr(cuda_step, "block_forces_streamed_reference", spy)
+    monkeypatch.setattr(cuda_step, "STREAMED_ABOVE", 64)
+    monkeypatch.setattr(cuda_step, "K2_WORKSPACE_BYTES", cuda_step.TILE * 8)
+    got = cuda_step.block_forces_auto(cfg, *rb, *cb, row_g0=rows[0],
+                                      col_g0=cols[0], biased=True,
+                                      accum=accum)
+    m = rows[1] - rows[0]
+    assert launches == [(rows[0] + r0, cuda_step.TILE)
+                        for r0 in range(0, m, cuda_step.TILE)]
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    off = cuda_step.block_forces_streamed_reference(
+        cfg, *rb, *cb, row_g0=rows[0], col_g0=cols[0], biased=False,
+        accum=accum)
+    assert not torch.equal(got[0], off[0])
+
+
 # ---------------------------------------------------------------------------
 # compensated accumulation: the magnitude-spread case of tests/test_accum.py
 # ---------------------------------------------------------------------------

@@ -229,18 +229,19 @@ def test_trig_forces_refuses_other_dtypes():
 
 def test_trig_source_builds_the_slots_and_its_own_library():
     """The kernel has one build, 4 threads a row, which its launcher
-    launches, and its source belongs to the ``trig`` library alone, so no
-    flag or change of it reaches K1's, K2's or the symmetric pass's
-    build."""
+    launches, and its source belongs to the step library alone
+    (``kernels``), where it compiles to an object of its own, so no flag or
+    change of it reaches K1's, K2's or the symmetric pass's code."""
     with open(os.path.join(CSRC, "forces_trig.cu")) as f:
         src = f.read()
     code = re.sub(r"//.*", "", src)
     assert re.search(r"constexpr int kRowSlots = 4;", code)
     assert re.findall(r"trig_forces_kernel<(\w+)>", code) == ["kRowSlots"]
-    owners = [name for name, (files, _) in _build.LIBRARIES.items()
+    owners = [name for name, (files, _, _) in _build.LIBRARIES.items()
               if "forces_trig.cu" in files]
-    assert owners == ["trig"]
-    assert list(_build.LIBRARIES["trig"][1]) == ["nbody_trig_forces_f64"]
+    assert owners == ["kernels"]
+    assert [name for name in _build.LIBRARIES["kernels"][2]
+            if name.startswith("nbody_trig")] == ["nbody_trig_forces_f64"]
 
 
 def test_trig_launcher_argtypes_match_the_source():
@@ -254,7 +255,7 @@ def test_trig_launcher_argtypes_match_the_source():
     want = {"double*": ctypes.c_void_p, "void*": ctypes.c_void_p,
             "int64_t": ctypes.c_int64, "double": ctypes.c_double}
     assert [want[t] for t in types] == \
-        _build.LIBRARIES["trig"][1]["nbody_trig_forces_f64"]
+        _build.LIBRARIES["kernels"][2]["nbody_trig_forces_f64"]
 
 
 _SASS = """

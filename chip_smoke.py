@@ -6,10 +6,11 @@
 Builds the CUDA force kernels from csrc/ (nvcc; K1 ``forces.cu``, the
 symmetric pass ``forces_symmetric.cu`` and K2 ``forces_streamed.cu``), holds
 each against its plain PyTorch version on the card, drives the CLI's two single-device paths through the kernels (N=65536
-for 100 steps through K1; N=262144 for 20 steps through K2 in fp32,
-fp32 ``--accum=compensated`` and bf16), checks the printed state of a small
-run against the CPU and two full-width steps against the plain version, and
-times the kernels against their plain versions.  It also builds the probes
+for 100 steps through K1's symmetric pass; N=262144 for 20 steps through
+the symmetric pass in row launches in fp32 and bf16 and through K2 in fp32
+``--accum=compensated``), checks the printed state of a small run against
+the CPU and two full-width steps against K2's plain version, and times the
+kernels against their plain versions.  It also builds the probes
 P1 (``roofline_probe.cu``) and P2 (``bias_variants_probe.cu``) beside the
 force kernels, prints the layout of their row loops as built (rows per
 thread, column split, the cluster fold, registers), holds each of their 12
@@ -24,7 +25,13 @@ The symmetric pass (K1's square fp32 case, each unordered pair once; the
 fp32 main path to 131072 bodies) is held to its plain version at N=384,
 4097, 65536 and 131072, two passes bit-equal, the kick of each placed pair
 bit-equal to K1's and far padding exactly 0 (phase_symmetric), and timed
-beside K1 on the same bodies at 65536 and 131072.
+beside K1 on the same bodies at 65536 and 131072.  Past 131072 bodies it
+takes K2's square fp32 calls with plain sums in row launches
+(``symmetric_forces``): at N=262144+77 launches of 100 row tiles are
+bit-equal to one launch and within TOL of its plain version and of K2, at
+65536 bit-equal to the one-launch pass (phase_symmetric_rows); bf16 is the
+fp32 result rounded once (phase_bf16); it is timed at 262144 and 1048576
+beside K2 (phase_timing_streamed).
 The parity pass (``forces_trig.cu``, an object of the step library:
 float64, the reference's trig pair math in its per-body order) is held bit
 for bit to the dense trig path and to its plain version at N=2, 1000, 4096
@@ -40,8 +47,9 @@ plain version, the three stable sorts, on the glibc init and random_state at
 N=65536 and 1048576, and both are timed there beside the kernel's bound
 (phase_coincident); the main path launches it once a force pass.
 The SASS census tells K1's and K2's three fp32 pair loops apart (unbiased,
-constant bias, per-pair bias), and the symmetric kernel's two loops from its
-diagonal's three, checks that none holds a per-pair branch or
+constant bias, per-pair bias), and each symmetric kernel's (one launch, row
+launches) two loops from its diagonal's three, checks that none holds a
+per-pair branch or
 the rsqrtf wrapper, checks the probe loops (no FSETP, a pass of R rows,
 every column load kept), and gives each kernel's issue bound.
 
@@ -105,8 +113,9 @@ kernel launches (the counts set to 0 just before it):
   - hw_validate: ``benchmarks/hw_validate.run_gate`` at its full sizes,
     cases A, F, B, B', R0-R2, C, D, D', E and the gravity-flip sabotage
     against float64, one line per case with its worst error beside its
-    tolerance (the JAX gate's, stated in that module); K1 100 and K2 142
-    launches.
+    tolerance (the JAX gate's, stated in that module); K1 100 and K2 60
+    launches, and 82 row launches of the symmetric pass (case C and the
+    three programs at N=262144).
   - drift: ``benchmarks/drift_study.run_study`` at N=65536 for fp32 plain,
     fp32 compensated and bf16, 1000 steps deep (the energy at 0, 500 and
     1000; the full 5000 steps are run by hand).
@@ -122,32 +131,38 @@ The speed tools (``benchmarks/``), after them, with the same accounting:
     run of the benchmark with the sabotage (the force pass in K1 launches
     of 8192 rows) trips it;
   - scaling: ``run_benchmarks`` in full — seq_grid, the K1/K2 grid to
-    N=2097152 with K2's first pass held to its plain version on 4096 rows
-    at 1M and 2M (``HOLD_TOL``), and the shard grid's reason for skipping
-    on one card;
+    N=2097152 (past 131072 the symmetric pass in row launches) with the
+    first pass held to K2's plain version on 4096 rows at 1M and 2M
+    (``HOLD_TOL``), and the shard grid's reason for skipping on one card;
   - K2 probes: ``ring_bias_probe``, ``bf16_stream_probe`` and a subset of
     ``autotune`` at one repetition;
   - huge_n: its argv ``N row_chunk out.ppm`` at N=1048576 with the default
     row chunk: one step through K2 in 3 row chunks, and its frame.
 
 The huge-N path (phase_hosted), last, with the same accounting:
-  - (a) N=2^21 from random_state: engine.step (one K2 launch, a 512 MiB
-    workspace) against ``engine.make_hosted_row_step`` in chunks of 262144
-    rows (8 launches, 64 MiB each), bit-equal, each one's peak memory;
-    then render_frame against render_frame_hosted, byte-equal, with theirs.
+  - (a) N=2^21 from random_state: ``engine.make_hosted_row_step`` with K2
+    in one launch (a 512 MiB workspace) against chunks of 262144 rows (8
+    launches, 64 MiB each), bit-equal, each one's peak memory; engine.step
+    (the symmetric pass in 128 row launches) against them, forces within
+    TOL; then render_frame against render_frame_hosted, byte-equal, with
+    theirs.
   - (b) N=26,000,000: one launch's workspace beside the card's
-    total_memory, and the launches engine.step takes at that N (its rows
-    sized by K2_WORKSPACE_BYTES); one K2 row chunk of 524288 rows at
+    total_memory, and the launches streamed_forces and engine.step take at
+    that N (sized by K2_WORKSPACE_BYTES); one K2 row chunk of 524288 rows at
     row_g0=13,000,000 against all columns, its time and peak memory, its
     first 128 rows bit-equal to K2 on those rows alone and 8 rows against
     the plain version; then render_frame against render_frame_hosted on
     the 26M bodies, byte-equal, with their times and peaks.  The whole
     step at that N is run by hand (benchmarks/huge_n).
-  - (c) the CLI at N=262144, ``secs_per_update=1``, 3 steps, without and
-    with NBODY_HUGE_THRESHOLD=131072 (and K2_WORKSPACE_BYTES lowered to
-    hold 65536 rows a launch): stdout byte-equal, the first frame's md5
-    equal, K2 launched 3 + 1 (the warm-up step) and 3 x 4 times (no
-    discarded step).
+  - (c) the CLI at N=262144, ``secs_per_update=1``, 3 steps: the symmetric
+    pass (3 + 1 row launches, the warm-up step's included);
+    NBODY_HUGE_THRESHOLD=131072 with K2_WORKSPACE_BYTES lowered to K2's
+    65536 rows, so that the huge branch (no discarded step; it steps
+    through engine.step) takes the symmetric pass in 512 launches of one
+    row tile a step; and K2 in one launch a step (the symmetric pass
+    turned off; 3 + 1 launches).  The huge run's stdout and first frame's
+    md5 equal the symmetric run's; the symmetric run's printed state lies
+    within two printed units (forces 1e-3 of their max) of K2's.
 
 Every phase passes or raises: any failure exits non-zero before the result
 lines.  The last two lines of stdout are the kernel table and the result,
@@ -179,12 +194,12 @@ Tolerances (each comparison uses the plain version's max |F| as the scale):
     fp32 positions quantize at ~6e-5 near x=1000 while a body moves ~2.5e-5
     per step, so close pairs' forces drift from the fp64 run by up to 0.4%
     of max|F| in 10 steps (measured on the CPU).
-  - two engine steps at N=262144 through K2 against the same steps with the
-    plain version's forces: the first force pass differs by the kernel's
-    2e-6 * max|F| at most; the second starts from positions that may differ
-    by an fp32 ulp, which moves close pairs' terms.  Positions within 1e-3
-    (one printed unit), velocities and forces within 1e-3 of the field's
-    max.
+  - two engine steps at N=262144 through the symmetric pass against the
+    same steps with K2's plain version's forces: the first force pass
+    differs by the kernels' 2e-6 * max|F| at most; the second starts from
+    positions that may differ by an fp32 ulp, which moves close pairs'
+    terms.  Positions within 1e-3 (one printed unit), velocities and
+    forces within 1e-3 of the field's max.
   - probe kernels vs their plain versions in the kernels' order (column
     parts, each summed in order, folded in rank order), fp32 variants:
     2e-5 * max|F| up to N=4096 and 4e-5 at N=65536 (``TOL_PROBE``,
@@ -204,7 +219,10 @@ Tolerances (each comparison uses the plain version's max |F| as the scale):
     1.8-2.1e-7 on the H100 from 384 to 131072 bodies): the same terms, each
     tile pair's sums and then each body's tile slots in tile order, where
     the kernel sums a 128-column block of a row's terms one by one and a
-    column's terms by rows, lanes and warps.
+    column's terms by rows, lanes and warps.  Its row launches against one
+    launch and against the one-launch pass at 65536: none, bit for bit (the
+    same slots, each body's added in tile order across the launches); against
+    K2: 2e-6 * max|F| (measured 6.5-7.3e-7 at 131149 and 262144).
   - frames, checkpoints and resume leave the printed state byte-equal: K1
     and the symmetric pass sum in a fixed order with no atomics, and the .npz holds the
     fp32 state exactly (as float64).
@@ -232,10 +250,11 @@ Tolerances (each comparison uses the plain version's max |F| as the scale):
   - animate: none; the card's frames are byte-equal to the CPU's render of
     the same recorded positions (as for the frames above).
   - entry: bit-equal to engine.step (the same call).
-  - the huge-N path: bit-equal and byte-equal throughout; each K2 row sums
-    its columns band by band in an order that does not depend on the rows
-    beside it in the launch, and a chunk that starts at a multiple of 128
-    keeps the bias segments.  The 8 rows at N=26M against the plain
+  - the huge-N path: bit-equal and byte-equal throughout between K2's
+    launches, and TOL between engine.step's symmetric pass and K2; each K2
+    row sums its columns band by band in an order that does not depend on
+    the rows beside it in the launch, and a chunk that starts at a multiple
+    of 128 keeps the bias segments.  The 8 rows at N=26M against the plain
     version: TOL (2e-6 * max|F|).
 """
 
@@ -266,6 +285,9 @@ MAIN_N, MAIN_STEPS = 65536, 100  # K1's path
 # version, and the top of K1's range, timed beside MAIN_N.
 SYM_NS = (384, 4097, MAIN_N, 131072)
 SYM_BIG_N = 131072
+# Row tiles a launch of phase_symmetric_rows's chunked passes (6 launches at
+# N=262221, the last one ragged).
+SYM_ROW_TILES = 100
 BIG_N, BIG_STEPS = 262144, 20  # K2's path: above cuda_step.STREAMED_ABOVE
 COINCIDENT_NS = (MAIN_N, 1 << 20)  # the flag's timings: K1's and K2's cells
 BIG_RUNS = (("fp32", []), ("fp32 compensated", ["--accum=compensated"]),
@@ -615,6 +637,22 @@ def phase_bf16(dev):
                             "rounded once" % (kernel, n, biased, accum))
         print("bf16 %-21s N=%d: bit-equal to fp32 rounded once (both flags, "
               "both accums)" % (kernel, n))
+    b16 = _bodies(init_state(BIG_N + 77, _cfg("bfloat16"), device=dev))
+    b32 = tuple(t.float() for t in b16)
+    for biased in (True, False):
+        with _sym_tiles(BIG_N + 77, SYM_ROW_TILES):
+            got = cuda_step.symmetric_forces(_cfg("bfloat16"), *b16,
+                                             biased=biased)
+            want = cuda_step.symmetric_forces(_cfg("float32"), *b32,
+                                              biased=biased)
+        if not all(g.dtype == torch.bfloat16 and torch.equal(
+                g, w.to(torch.bfloat16)) for g, w in zip(got, want)):
+            raise AssertionError("symmetric_forces bf16 N=%d biased=%s: not "
+                                 "the fp32 result rounded once"
+                                 % (BIG_N + 77, biased))
+    print("bf16 symmetric_forces      N=%d: bit-equal to fp32 rounded once "
+          "(both flags, row launches of %d tiles)" % (BIG_N + 77,
+                                                      SYM_ROW_TILES))
 
 
 def phase_coincident(dev):
@@ -717,43 +755,47 @@ def _passes():
 
 def _xps_run(n, steps, extra, arena):
     """One ``--run-xps`` CLI run on the card with the kernels' counts set
-    to 0 just before it, one flag launch a force pass; returns
-    (block_forces's passes, K2 launches, RTIME)."""
+    to 0 just before it, one flag launch a force pass (at most one row
+    launch of the symmetric pass a pass here); returns (block_forces's
+    passes, K2 launches, symmetric_forces's row launches, RTIME)."""
     from parallel_nbody_tpu_torch.ops import cuda_step
     from parallel_nbody_tpu_torch.utils.output import pair_interactions
     argv = [str(n), "0", arena, str(steps), "--no-clamp", "--pallas",
             "--run-xps"] + extra
     _zero_passes()
     cuda_step.block_forces_streamed.launches = 0
+    cuda_step.symmetric_forces.launches = 0
     cuda_step.any_coincident.launches = 0
     out, err = _cli(argv, "cuda")
     k1 = _passes()
     k2 = cuda_step.block_forces_streamed.launches
+    sym = cuda_step.symmetric_forces.launches
     flags = cuda_step.any_coincident.launches
     row = re.fullmatch(r"%d,(\d+\.\d{3}), (\d+\.\d{2})\n" % n, out)
     if row is None:
         raise AssertionError("malformed CSV row: %r" % out)
     rtime = float(row.group(1))
     print("main path: %s" % " ".join(argv))
-    print("main path: launches K1 %d symmetric %d K2 %d flag %d, RTIME "
-          "%.3f s, %.6e unordered pairs/s, GFLOPS (reference model) %s"
-          % (k1.k1, k1.symmetric, k2, flags, rtime,
+    print("main path: launches K1 %d symmetric %d K2 %d symmetric rows %d "
+          "flag %d, RTIME %.3f s, %.6e unordered pairs/s, GFLOPS (reference "
+          "model) %s"
+          % (k1.k1, k1.symmetric, k2, sym, flags, rtime,
              pair_interactions(n, steps) / rtime, row.group(2)))
-    if flags != (k1 or k2):
+    if flags != (k1 or k2 or sym):
         raise AssertionError("%s: %d flag launches for %d force passes"
-                             % (" ".join(argv), flags, k1 or k2))
+                             % (" ".join(argv), flags, k1 or k2 or sym))
     sys.stderr.write(err)
-    return k1, k2, rtime
+    return k1, k2, sym, rtime
 
 
 def phase_main_path(arena):
     from parallel_nbody_tpu_torch.ops import cuda_step
-    k1, k2, rtime = _xps_run(MAIN_N, MAIN_STEPS, [], arena)
+    k1, k2, sym, rtime = _xps_run(MAIN_N, MAIN_STEPS, [], arena)
     flags = cuda_step.any_coincident.launches
-    if k1 < MAIN_STEPS or k2 != 0 or k1.k1 != 0:
+    if k1 < MAIN_STEPS or k2 != 0 or sym != 0 or k1.k1 != 0:
         raise AssertionError("N=%d path launched K1 %d, the symmetric pass "
-                             "%d and K2 %d times"
-                             % (MAIN_N, k1.k1, k1.symmetric, k2))
+                             "%d, K2 %d and its row launches %d times"
+                             % (MAIN_N, k1.k1, k1.symmetric, k2, sym))
 
     small = ["1024", "0", arena, "10", "--pallas"]
     card, _ = _cli(small, "cuda")
@@ -766,21 +808,28 @@ def phase_main_path(arena):
 
 
 def phase_main_path_streamed(arena):
-    """The slice's path: N=262144 through K2 in fp32, fp32 compensated and
-    bf16.  Returns K2's launches over the three runs."""
-    total = 0
+    """The path past K1's range: N=262144 through the symmetric pass in row
+    launches (one a step) in fp32 and bf16, and through K2 in fp32
+    compensated.  Returns (K2's launches, the row launches) over the three
+    runs."""
+    total = [0, 0]
     for label, extra in BIG_RUNS:
-        k1, k2, _ = _xps_run(BIG_N, BIG_STEPS, extra, arena)
-        if k2 < BIG_STEPS or k1 != 0:
-            raise AssertionError("N=%d %s path launched K1 %d and K2 %d "
-                                 "times" % (BIG_N, label, k1, k2))
-        total += k2
+        k1, k2, sym, _ = _xps_run(BIG_N, BIG_STEPS, extra, arena)
+        want_k2 = "compensated" in label
+        if k1 != 0 or (k2, sym)[want_k2] != 0 or \
+                (sym, k2)[want_k2] < BIG_STEPS:
+            raise AssertionError("N=%d %s path launched K1 %d, K2 %d and "
+                                 "the symmetric rows %d times"
+                                 % (BIG_N, label, k1, k2, sym))
+        total[0] += k2
+        total[1] += sym
     return total
 
 
 def phase_state_streamed(dev):
-    """Two engine steps at N=262144 through K2 against the same two steps
-    with forces from K2's plain version on the card."""
+    """Two engine steps at N=262144 through the symmetric pass (one row
+    launch a step) against the same two steps with forces from K2's plain
+    version on the card."""
     from parallel_nbody_tpu_torch.models import engine
     from parallel_nbody_tpu_torch.ops import cuda_step
     from parallel_nbody_tpu_torch.state import init_state
@@ -792,10 +841,11 @@ def phase_state_streamed(dev):
 
     cfg = _cfg("float32")
     st0 = init_state(BIG_N, cfg, device=dev)
-    before = cuda_step.block_forces_streamed.launches
+    before = cuda_step.symmetric_forces.launches
     got = engine.run(cfg, st0, 2)
-    if cuda_step.block_forces_streamed.launches != before + 2:
-        raise AssertionError("engine.step at N=%d did not launch K2" % BIG_N)
+    if cuda_step.symmetric_forces.launches != before + 2:
+        raise AssertionError("engine.step at N=%d did not launch the "
+                             "symmetric pass" % BIG_N)
     with mock.patch.object(engine, "cuda_forces", plain_forces):
         want = engine.run(cfg, st0, 2)
     torch.cuda.synchronize()
@@ -805,7 +855,8 @@ def phase_state_streamed(dev):
             raise AssertionError("non-finite %s after 2 steps" % name)
         diff = float((g - w).abs().max())
         tol = 1e-3 if name in ("x", "y") else 1e-3 * float(w.abs().max())
-        print("state N=%d 2 steps K2 vs plain %-2s max|diff| %.6e (tol %.6e)"
+        print("state N=%d 2 steps symmetric vs K2's plain %-2s max|diff| "
+              "%.6e (tol %.6e)"
               % (BIG_N, name, diff, tol))
         if not diff <= tol:
             raise AssertionError("N=%d: field %s differs by %.6e"
@@ -901,6 +952,72 @@ def phase_symmetric(dev):
         raise AssertionError("symmetric: far padding feels a force")
     print("symmetric far padding: exactly 0")
     return worst[MAIN_N], plain_ms[MAIN_N], plain_ms[SYM_BIG_N]
+
+
+def phase_symmetric_rows(dev):
+    """The symmetric pass past K1's range (``symmetric_forces``, row
+    launches) at N=BIG_N+77 from the glibc init, both flags: one launch
+    and launches of SYM_ROW_TILES tiles bit-equal, the launches counted in
+    ``symmetric_forces.launches``; against its plain version
+    (``symmetric_forces_reference``) and K2 within TOL; at MAIN_N
+    bit-equal to block_forces's one-launch pass.  Returns (max |error| /
+    max|F| against the plain version, the plain version's ms, max |error|
+    / max|F| against K2)."""
+    from parallel_nbody_tpu_torch.ops import cuda_step
+    from parallel_nbody_tpu_torch.state import init_state
+    cfg = _cfg("float32")
+    n = BIG_N + 77
+    b = _bodies(init_state(n, cfg, device=dev))
+    tiles = -(-n // cuda_step.SYMMETRIC_TILE)
+    worst = {"plain": 0.0, "K2": 0.0}
+    plain_ms = None
+    for biased in (True, False):
+        flag = torch.tensor(biased, device=dev)
+        with _sym_tiles(n):
+            one = cuda_step.symmetric_forces(cfg, *b, biased=flag)
+        before = cuda_step.symmetric_forces.launches
+        with _sym_tiles(n, SYM_ROW_TILES):
+            got = cuda_step.symmetric_forces(cfg, *b, biased=flag)
+        launches = cuda_step.symmetric_forces.launches - before
+        equal = all(torch.equal(g, w) for g, w in zip(got, one))
+        against = {"K2": cuda_step.streamed_forces(cfg, *b, biased=flag)}
+        if biased:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            against["plain"] = cuda_step.symmetric_forces_reference(
+                cfg, *b, biased=flag)
+            end.record()
+            torch.cuda.synchronize()
+            plain_ms = start.elapsed_time(end)
+        for label, want in against.items():
+            scale = max(float(w.abs().max()) for w in want)
+            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            worst[label] = max(worst[label], err / scale)
+            print("symmetric rows N=%d biased=%-5s vs %-5s max|err| %.6e "
+                  "/max|F| %.6e" % (n, biased, label, err, err / scale))
+            if not err <= TOL[torch.float32] * scale:
+                raise AssertionError("symmetric rows N=%d biased=%s vs %s: "
+                                     "max|err| %.6e of %.6e"
+                                     % (n, biased, label, err, scale))
+        print("symmetric rows N=%d biased=%-5s: %d launches of %d tiles "
+              "bit-equal to one launch %s" % (n, biased, launches,
+                                               SYM_ROW_TILES, equal))
+        if not equal or launches != -(-tiles // SYM_ROW_TILES):
+            raise AssertionError("symmetric rows N=%d: %d launches, "
+                                 "bit-equal %s" % (n, launches, equal))
+    b = _bodies(init_state(MAIN_N, cfg, device=dev))
+    for biased in (True, False):
+        want = cuda_step.block_forces(cfg, *b, *b, biased=biased)
+        with _sym_tiles(MAIN_N, SYM_ROW_TILES):
+            got = cuda_step.symmetric_forces(cfg, *b, biased=biased)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError("symmetric rows N=%d biased=%s: not "
+                                 "block_forces's pass" % (MAIN_N, biased))
+    print("symmetric rows N=%d: launches of %d tiles bit-equal to "
+          "block_forces's one-launch pass (both flags); the plain version "
+          "at N=%d %.3f ms" % (MAIN_N, SYM_ROW_TILES, n, plain_ms))
+    return worst["plain"], plain_ms, worst["K2"]
 
 
 def _pixel_report(bodies, j, i):
@@ -1332,7 +1449,7 @@ def phase_reference_replay(dev, tmp, trig=False):
               % (label, rel, line, got, want))
     for line in mismatches:
         print("%s MISMATCH: %s" % (label, line))
-    k1, _ = _read_counts(label, t0, 0 if trig else launches, 0)
+    k1, _, _ = _read_counts(label, t0, 0 if trig else launches, 0)
     trig_launches = cuda_step.trig_forces.launches
     print("%s: parity pass launches %d" % (label, trig_launches))
     if trig_launches != (launches if trig else 0):
@@ -1435,19 +1552,19 @@ def phase_main_path_trig(arena):
     def plain_forces(cfg, x, y, mass, radius, **_):
         return cuda_step.trig_forces_reference(cfg, x, y, mass, radius)
 
-    _zero_passes()
-    cuda_step.block_forces_streamed.launches = 0
+    t0 = _reset_counts()
     cuda_step.trig_forces.launches = 0
-    t0 = time.perf_counter()
     out, _ = _cli(argv, "cuda")
     seconds = time.perf_counter() - t0
     launches = cuda_step.trig_forces.launches
     k1, k2 = _passes(), cuda_step.block_forces_streamed.launches
+    k2 += cuda_step.symmetric_forces.launches
     with mock.patch.object(engine, "cuda_forces", plain_forces):
         want, _ = _cli(argv, "cuda")
     _state_table(out, MAIN_N)
     print("main path trig: %s: parity pass launches %d (K1 %d, symmetric "
-          "%d, K2 %d), %.1f s; stdout byte-equal to the plain version's: %s"
+          "%d, K2 and symmetric rows %d), %.1f s; stdout byte-equal to the "
+          "plain version's: %s"
           % (" ".join(argv), launches, k1.k1, k1.symmetric, k2, seconds,
              out == want))
     if launches != 1 + TRIG_MAIN_STEPS or k1 != 0 or k2 != 0:
@@ -2003,10 +2120,12 @@ def phase_timing(dev):
 
 def phase_timing_streamed(dev):
     """K2 at N=262144 (unbiased, biased, compensated, bf16), its fold
-    launch alone, K1 at the same N, and the step."""
+    launch alone, K1 at the same N, the symmetric pass in row launches
+    (``symmetric_forces``, fp32 and bf16) and the step, which takes it; then
+    the symmetric pass and K2 at N=HUGE_SMOKE_N (1M, random_state)."""
     from parallel_nbody_tpu_torch.models.engine import step
     from parallel_nbody_tpu_torch.ops import cuda_step
-    from parallel_nbody_tpu_torch.state import init_state
+    from parallel_nbody_tpu_torch.state import init_state, random_state
     cfg, cfg16 = _cfg("float32"), _cfg("bfloat16")
     st = init_state(BIG_N, cfg, device=dev)
     b = _bodies(st)
@@ -2036,11 +2155,73 @@ def phase_timing_streamed(dev):
             cfg, *b, *b, biased=on), 5, warmup=1),
         "any_coincident": _time_ms(lambda: cuda_step.any_coincident(
             st.x, st.y, st.mass), 20),
+        "symmetric_rows": _time_ms(lambda: cuda_step.symmetric_forces(
+            cfg, *b, biased=off), 5, warmup=1),
+        "symmetric_rows_biased": _time_ms(lambda: cuda_step.symmetric_forces(
+            cfg, *b, biased=on), 5, warmup=1),
+        "symmetric_rows_bf16": _time_ms(lambda: cuda_step.symmetric_forces(
+            cfg16, *b16, biased=off), 5, warmup=1),
         "step": _time_ms(lambda: step(cfg, st), 5, warmup=1),
     }
     for name, ms in times.items():
         print("time N=%d %-22s %.6f ms" % (BIG_N, name, ms))
+    n = HUGE_SMOKE_N
+    big = _bodies(random_state(n, cfg, torch.Generator(
+        device=dev).manual_seed(0), device=dev))
+    huge = {
+        "symmetric_rows": _time_ms(lambda: cuda_step.symmetric_forces(
+            cfg, *big, biased=off), 2, warmup=1),
+        "symmetric_rows_biased": _time_ms(lambda: cuda_step.symmetric_forces(
+            cfg, *big, biased=on), 2, warmup=1),
+        "K2": _time_ms(lambda: cuda_step.streamed_forces(
+            cfg, *big, biased=off), 2, warmup=1),
+        "K2_biased": _time_ms(lambda: cuda_step.streamed_forces(
+            cfg, *big, biased=on), 2, warmup=1),
+    }
+    for name, ms in huge.items():
+        print("time N=%d %-22s %.6f ms (%d row launches)"
+              % (n, name, ms, _row_launches(n) if "rows" in name
+                 else -(-n // cuda_step.streamed_rows(n, torch.float32))))
+    _hold_huge(cfg, big)
+    times.update({"%s_n%d" % (k, n): v for k, v in huge.items()})
     return times
+
+
+def _hold_huge(cfg, b):
+    """The symmetric pass at N=HUGE_SMOKE_N, both flags, in the row
+    launches the benchmark's K2 cells run, against K2 on every row and
+    against K2's plain version on the scaling grid's four held blocks of
+    rows, each within TOL * max|F| (K2's)."""
+    from parallel_nbody_tpu_torch.benchmarks import run_benchmarks as rb
+    from parallel_nbody_tpu_torch.ops import cuda_step
+    n = b[0].shape[0]
+    for biased in (False, True):
+        flag = torch.tensor(biased, device=b[0].device)
+        before = cuda_step.symmetric_forces.launches
+        got = cuda_step.symmetric_forces(cfg, *b, biased=flag)
+        launches = cuda_step.symmetric_forces.launches - before
+        k2 = cuda_step.streamed_forces(cfg, *b, biased=flag)
+        scale = max(float(w.abs().max()) for w in k2)
+        err = {"K2": max(float((g - w).abs().max())
+                         for g, w in zip(got, k2))}
+        del k2
+        plain = 0.0
+        for r0 in rb.hold_rows(n):
+            rows = slice(r0, r0 + rb.HOLD_BLOCK)
+            want = cuda_step.block_forces_streamed_reference(
+                cfg, *(t[rows] for t in b), *b, row_g0=r0, biased=flag)
+            plain = max(plain, max(float((g[rows] - w).abs().max())
+                                   for g, w in zip(got, want)))
+        err["plain"] = plain
+        for label, e in err.items():
+            print("symmetric rows N=%d biased=%-5s (%d launches) vs %-5s "
+                  "max|err| %.6e /max|F| %.6e"
+                  % (n, biased, launches, label, e, e / scale))
+        if launches != _row_launches(n) or not all(
+                e <= TOL[torch.float32] * scale for e in err.values()):
+            raise AssertionError("symmetric rows N=%d biased=%s: %d "
+                                 "launches, max|err| %r of %.6e"
+                                 % (n, biased, launches, err, scale))
 
 
 def _probe_inputs(n, seed, dev, square=False):
@@ -2231,7 +2412,7 @@ def _sass_census():
                 if name.endswith("<fLb0>"):
                     ipp[name.split("<")[0], role] = \
                         sass_census.instr_per_pair(row)
-            if name.startswith(sass_census.SYMMETRIC_KERNEL):
+            if name.startswith(sass_census.SYMMETRIC_KERNELS):
                 # One rsqrt a pair, and no rsqrtf wrapper.
                 if not role or ops["FSETP"] or ops["MUFU"] != row[3]:
                     raise AssertionError(
@@ -2239,7 +2420,7 @@ def _sass_census():
                         % (name, start, role or "no role", ops["FSETP"],
                            ops["MUFU"], row[3]))
                 if name.endswith("<f>"):
-                    ipp[sass_census.SYMMETRIC_KERNEL, role] = \
+                    ipp[name.split("<")[0], role] = \
                         sass_census.instr_per_pair(row)
             if name.startswith(("roofline_probe", "bias_probe")):
                 faults = sass_census.probe_loop_faults(row)
@@ -2251,9 +2432,9 @@ def _sass_census():
                     + (sass_census.instr_per_pair(row),)))
     missing = [(k, r) for k in sass_census.FORCE_KERNELS
                for r in sass_census.ROLES if (k, r) not in ipp]
-    missing += [(sass_census.SYMMETRIC_KERNEL, r)
+    missing += [(k, r) for k in sass_census.SYMMETRIC_KERNELS
                 for r in sass_census.ROLES + sass_census.SYMMETRIC_ROLES
-                if (sass_census.SYMMETRIC_KERNEL, r) not in ipp]
+                if (k, r) not in ipp]
     missing += [(k, "probe") for k in (
         sass_census.probe_kernel_name(m.NAME, v)
         for m in (p1, p2) for v in m.VARIANTS)
@@ -2302,6 +2483,11 @@ def _issue_report(ipp, issue_hz, times, times_big, probe_events):
         _symmetric_issue(ipp, issue_hz, n, times[label + "symmetric"],
                          times[label + "symmetric_biased"],
                          times[label + "symmetric_fold"])
+    for n, label in ((BIG_N, ""), (HUGE_SMOKE_N, "_n%d" % HUGE_SMOKE_N)):
+        _symmetric_issue(ipp, issue_hz, n,
+                         times_big["symmetric_rows" + label],
+                         times_big["symmetric_rows_biased" + label],
+                         kernel=sass_census.SYMMETRIC_ROWS_KERNEL)
     for (probe, variant), ms in probe_events.items():
         kernel = sass_census.probe_kernel_name(probe, variant)
         if (kernel, "probe") not in ipp:
@@ -2349,12 +2535,15 @@ def _trig_issue(ipp, issue_hz, times):
     return out
 
 
-def _symmetric_issue(ipp, issue_hz, n, t_off, t_on, t_fold):
+def _symmetric_issue(ipp, issue_hz, n, t_off, t_on, t_fold=None,
+                     kernel=None):
     """The symmetric pass's times at n beside its issue bound: the
     unordered pairs of the tile pairs off the diagonal at the census count
-    of its symmetric loops, the diagonal tiles' ordered pairs at K1's loop
-    count (per-pair bias on the 128-wide blocks of the diagonal, constant
-    bias on the rest when biased)."""
+    of ``kernel``'s symmetric loops (the one-launch kernel by default; the
+    row launches' kernel for ``symmetric_forces``), the diagonal tiles'
+    ordered pairs at K1's loop count (per-pair bias on the 128-wide blocks
+    of the diagonal, constant bias on the rest when biased).  ``t_fold``,
+    the one-launch fold's time, where it was timed alone."""
     from parallel_nbody_tpu_torch.benchmarks import sass_census
     from parallel_nbody_tpu_torch.ops import cuda_step
     tile = cuda_step.SYMMETRIC_TILE
@@ -2362,11 +2551,12 @@ def _symmetric_issue(ipp, issue_hz, n, t_off, t_on, t_fold):
     off_pairs = nt * (nt - 1) // 2 * tile * tile
     diag_pairs = nt * tile * tile
     per_pair = cuda_step.TILE / tile  # of the diagonal's pairs
-    k = sass_census.SYMMETRIC_KERNEL
-    line = ("issue symmetric N=%d: unbiased %.6f ms, biased %.6f ms (fold "
-            "%.6f ms, %.2f%% of the unbiased pass); %d tile pairs, %d on "
-            "the diagonal" % (n, t_off, t_on, t_fold, 100 * t_fold / t_off,
-                              nt * (nt + 1) // 2, nt))
+    k = kernel or sass_census.SYMMETRIC_KERNEL
+    fold = ("" if t_fold is None else " (fold %.6f ms, %.2f%% of the "
+            "unbiased pass)" % (t_fold, 100 * t_fold / t_off))
+    line = ("issue %s N=%d: unbiased %.6f ms, biased %.6f ms%s; %d tile "
+            "pairs, %d on the diagonal" % (k, n, t_off, t_on, fold,
+                                           nt * (nt + 1) // 2, nt))
     if ipp:
         bound = {}
         for biased, sym, diag in (
@@ -2390,24 +2580,45 @@ def _reset_counts():
     from parallel_nbody_tpu_torch.ops import cuda_step
     _zero_passes()
     cuda_step.block_forces_streamed.launches = 0
+    cuda_step.symmetric_forces.launches = 0
     torch.cuda.synchronize()
     return time.perf_counter()
 
 
-def _read_counts(label, t0, want_k1, want_k2):
+def _read_counts(label, t0, want_k1, want_k2, want_rows=0):
     """The counts since ``_reset_counts``, held to what the path must
-    launch; prints the path's wall time."""
+    launch: block_forces's passes, K2's launches and the symmetric pass's
+    row launches (``symmetric_forces``); prints the path's wall time."""
     from parallel_nbody_tpu_torch.ops import cuda_step
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     k1 = _passes()
     k2 = cuda_step.block_forces_streamed.launches
-    print("%s: %.1f s, launches K1 %d symmetric %d K2 %d"
-          % (label, seconds, k1.k1, k1.symmetric, k2))
-    if (k1, k2) != (want_k1, want_k2):
-        raise AssertionError("%s: launched K1 %d and K2 %d times, expected "
-                             "%d and %d" % (label, k1, k2, want_k1, want_k2))
-    return k1, k2
+    rows = cuda_step.symmetric_forces.launches
+    print("%s: %.1f s, launches K1 %d symmetric %d K2 %d symmetric rows %d"
+          % (label, seconds, k1.k1, k1.symmetric, k2, rows))
+    if (k1, k2, rows) != (want_k1, want_k2, want_rows):
+        raise AssertionError("%s: launched K1 %d, K2 %d and the symmetric "
+                             "rows %d times, expected %d, %d and %d"
+                             % (label, k1, k2, rows, want_k1, want_k2,
+                                want_rows))
+    return k1, k2, rows
+
+
+def _sym_tiles(n, tiles=None):
+    """K2_WORKSPACE_BYTES patched so that symmetric_forces over n bodies
+    takes ``tiles`` row tiles a launch (None: all, one launch)."""
+    from parallel_nbody_tpu_torch.ops import cuda_step
+    tiles = tiles or -(-n // cuda_step.SYMMETRIC_TILE)
+    return mock.patch.object(cuda_step, "K2_WORKSPACE_BYTES",
+                             cuda_step.symmetric_launch_bytes(n, tiles))
+
+
+def _row_launches(n):
+    """symmetric_forces's row launches for one pass over n bodies."""
+    from parallel_nbody_tpu_torch.ops import cuda_step
+    tiles = -(-n // cuda_step.SYMMETRIC_TILE)
+    return -(-tiles // cuda_step.symmetric_row_tiles(n))
 
 
 def phase_hw_validate(dev):
@@ -2415,9 +2626,10 @@ def phase_hw_validate(dev):
     full sizes: every case within the JAX gate's tolerances of float64, the
     programs against the fused run, the gravity flip detected.  One line
     per case with its worst error beside its tolerance.  Returns the
-    (K1, K2) launches of the gate's kernel paths: cases A, F, sabotage and
-    the resident random cases through K1; B, B', the streamed random case,
-    C (two force passes and its run) and the three programs through K2."""
+    (K1, K2, symmetric rows) launches of the gate's kernel paths: cases A,
+    F, sabotage and the resident random cases through K1; B, B' and the
+    streamed random case through K2; C (two force passes and its run) and
+    the three programs through the symmetric pass in row launches."""
     from parallel_nbody_tpu_torch.benchmarks import hw_validate as hv
     from parallel_nbody_tpu_torch.ops import cuda_step
     t0 = _reset_counts()
@@ -2428,13 +2640,16 @@ def phase_hw_validate(dev):
                               if c["variant"] == "resident")
     want_k2 = 2 * steps + sum(c["steps"] for c in specs
                               if c["variant"] == "streamed")
-    # Case C's two force passes, its run and the three programs' runs: K2
-    # at the full N_LARGE, K1 below the threshold.
+    want_rows = 0
+    # Case C's two force passes, its run and the three programs' runs: the
+    # symmetric pass's row launches at the full N_LARGE (fp32, plain sums,
+    # one block of bodies), K1 below the threshold.
     if verdict["n_large"] > cuda_step.STREAMED_ABOVE:
-        want_k2 += 2 + steps + 3 * steps
+        want_rows = (2 + steps + 3 * steps) * _row_launches(
+            verdict["n_large"])
     else:
         want_k1 += 2 + steps + 3 * steps
-    launches = _read_counts("hw_validate", t0, want_k1, want_k2)
+    launches = _read_counts("hw_validate", t0, want_k1, want_k2, want_rows)
     for line in hv.summary_lines(verdict):
         print("hw_validate " + line)
     print("hw_validate: N=%d band %d: %d bands; %s"
@@ -2466,7 +2681,7 @@ def phase_drift(dev):
     t0 = _reset_counts()
     rec = ds.run_study(dev, sizes, log=lambda s: print("drift: " + s))
     per_mode = 2 + ds.TIMING_REPS * sizes.chunk + sizes.steps
-    k1, _ = _read_counts("drift", t0, len(ds.MODES) * per_mode, 0)
+    k1, _, _ = _read_counts("drift", t0, len(ds.MODES) * per_mode, 0)
     for mode in ds.MODES:
         f = rec["force_operator_vs_fp64"][mode]
         e = rec["energy"][mode]
@@ -2500,7 +2715,7 @@ def phase_animate(dev, tmp):
     t0 = _reset_counts()
     cfg, xs, ys, radius, paths = animate.record(
         ANIMATE_N, ANIMATE_STEPS, ANIMATE_EVERY, outdir, dev)
-    k1, _ = _read_counts("animate", t0, ANIMATE_STEPS, 0)
+    k1, _, _ = _read_counts("animate", t0, ANIMATE_STEPS, 0)
     if len(paths) != ANIMATE_STEPS // ANIMATE_EVERY:
         raise AssertionError("animate wrote %d frames" % len(paths))
     for i, path in enumerate(paths):
@@ -2528,7 +2743,7 @@ def phase_entry(dev):
                              % (state.x.device, state.n))
     t0 = _reset_counts()
     got = fn(state)
-    k1, _ = _read_counts("entry", t0, 1, 0)
+    k1, _, _ = _read_counts("entry", t0, 1, 0)
     want = step(_cfg("float32"), state)
     equal = all(torch.equal(g, w) for g, w in zip(got, want))
     print("entry: fn(state) at N=%d bit-equal to engine.step: %s"
@@ -2565,7 +2780,8 @@ def phase_bench(dev):
     with contextlib.redirect_stdout(out), \
             mock.patch.dict(os.environ, {bench.ROWS_ENV: ""}):
         rc = bench.main(["bench"])
-    k1, _ = _read_counts("bench", t0, (1 + bench.REPS) * bench.STEPS, 0)
+    k1, _, _ = _read_counts("bench", t0, (1 + bench.REPS) * bench.STEPS,
+                            0)
     lines = out.getvalue().strip().splitlines()
     print("bench: rc %d, %s" % (rc, lines[-1] if lines else "no line"))
     if rc != 0 or len(lines) != 1:
@@ -2606,14 +2822,18 @@ def phase_scaling(dev):
     """The scaling grid (benchmarks/run_benchmarks) in full on the card:
     seq_grid, the K1/K2 grid to N=2097152 with the row-sample holds of K2's
     first force pass at N >= HOLD_FROM, and the shard grid's reason for
-    being skipped on one card.  Returns (K1, K2) launches: a warm-up step
-    and k steps a size, and one held pass from HOLD_FROM up."""
+    being skipped on one card.  Returns (K1, K2, symmetric rows) launches:
+    a warm-up step and k steps a size, and one held pass from HOLD_FROM up;
+    past STREAMED_ABOVE every pass is the symmetric pass's row launches."""
     from parallel_nbody_tpu_torch.benchmarks import run_benchmarks as rb
     from parallel_nbody_tpu_torch.ops import cuda_step
-    want = [0, 0]
+    want = [0, 0, 0]
     for n in rb.GRID_SIZES:
-        want[n > cuda_step.STREAMED_ABOVE] += 1 + rb.grid_steps(n) + (
-            n >= rb.HOLD_FROM)
+        passes = 1 + rb.grid_steps(n) + (n >= rb.HOLD_FROM)
+        if n > cuda_step.STREAMED_ABOVE:
+            want[2] += passes * _row_launches(n)
+        else:
+            want[0] += passes
     t0 = _reset_counts()
     rep = rb.report(dev, log=lambda s: print("scaling: " + s))
     launches = _read_counts("scaling", t0, *want)
@@ -2635,7 +2855,8 @@ def phase_scaling(dev):
 def phase_k2_probes(dev):
     """ring_bias_probe, bf16_stream_probe and a subset of autotune on the
     card at PROBE_REPS repetitions.  Returns (K1, K2) launches: a warm-up
-    and PROBE_REPS passes for every timed case."""
+    and PROBE_REPS passes for every timed case (the bf16 probe calls K2
+    itself)."""
     from parallel_nbody_tpu_torch.benchmarks import autotune
     from parallel_nbody_tpu_torch.benchmarks import bf16_stream_probe as bf
     from parallel_nbody_tpu_torch.benchmarks import ring_bias_probe as rbp
@@ -2653,7 +2874,7 @@ def phase_k2_probes(dev):
     b16 = bf.probe(dev, reps=PROBE_REPS, log=lambda s: print("bf16 " + s))
     tune = autotune.sweep(dev, PROBE_REPS, AUTOTUNE_SUBSET,
                           log=lambda s: print("autotune " + s))
-    launches = _read_counts("k2 probes", t0, *want)
+    launches = _read_counts("k2 probes", t0, *want)[:2]
     for label, case in ring["cases"].items():
         print("ring_bias %s: bias costs %.2f%%" % (label,
                                                   case["bias_cost_pct"]))
@@ -2678,7 +2899,7 @@ def phase_huge(dev, tmp):
     for line in out.getvalue().splitlines():
         print("huge_n: " + line)
     chunks = -(-HUGE_SMOKE_N // huge_n.ROW_CHUNK)
-    _, k2 = _read_counts("huge_n", t0, 0, chunks)
+    _, k2, _ = _read_counts("huge_n", t0, 0, chunks)
     with open(rec_path) as f:
         rec = json.load(f)
     if rc != 0 or rec["chunks"] != chunks or not rec["lit_pixels"] or \
@@ -2708,11 +2929,13 @@ def _workspace_bytes(rows, cols):
 
 
 def _hosted_step(dev):
-    """(a): engine.step (one K2 launch) against make_hosted_row_step in
-    chunks of HOSTED_CHUNK at N=HOSTED_N, bit-equal, with each one's peak
-    memory; then render_frame against render_frame_hosted on the stepped
-    state, byte-equal, with theirs.  Returns the chunked step's K2
-    launches."""
+    """(a): make_hosted_row_step in chunks of HOSTED_CHUNK at N=HOSTED_N
+    against the same step with K2 in one launch (the chunk at N),
+    bit-equal, with each one's peak memory; engine.step, the symmetric pass
+    in row launches, against them within TOL * max|F| on the forces; then
+    render_frame against render_frame_hosted on the stepped state,
+    byte-equal, with theirs.  Returns (the chunked step's K2 launches,
+    engine.step's row launches)."""
     from parallel_nbody_tpu_torch.models import engine
     from parallel_nbody_tpu_torch.state import random_state
     cfg = _cfg("float32")
@@ -2720,29 +2943,43 @@ def _hosted_step(dev):
     st = random_state(n, cfg, torch.Generator(device=dev).manual_seed(0),
                       device=dev)
     step_fn, warmup = engine.make_hosted_row_step(cfg, n, HOSTED_CHUNK)
+    one_fn, _ = engine.make_hosted_row_step(cfg, n, n)
     warmup()
     t0 = _reset_counts()
-    one, one_ms, one_peak = _peak(lambda: engine.step(cfg, st), dev)
-    _read_counts("hosted N=%d engine.step" % n, t0, 0, 1)
+    one, one_ms, one_peak = _peak(lambda: one_fn(st), dev)
+    _read_counts("hosted N=%d one K2 launch" % n, t0, 0, 1)
     chunks = n // HOSTED_CHUNK
     t0 = _reset_counts()
     got, got_ms, got_peak = _peak(lambda: step_fn(st), dev)
-    _, k2 = _read_counts("hosted N=%d row chunks of %d" % (n, HOSTED_CHUNK),
-                         t0, 0, chunks)
+    _, k2, _ = _read_counts("hosted N=%d row chunks of %d"
+                            % (n, HOSTED_CHUNK), t0, 0, chunks)
     equal = all(torch.equal(getattr(one, f), getattr(got, f))
                 for f in ("x", "y", "xv", "yv", "xf", "yf"))
+    t0 = _reset_counts()
+    sym, sym_ms, sym_peak = _peak(lambda: engine.step(cfg, st), dev)
+    _, _, rows = _read_counts("hosted N=%d engine.step" % n, t0, 0, 0,
+                              _row_launches(n))
+    scale = max(float(one.xf.abs().max()), float(one.yf.abs().max()))
+    err = max(float((sym.xf - one.xf).abs().max()),
+              float((sym.yf - one.yf).abs().max()))
     mib = 2.0 ** 20
-    print("hosted N=%d: engine.step (1 K2 launch, workspace %.0f MiB) "
-          "%.3f ms, peak %.1f MiB; row chunks of %d (%d launches, "
-          "workspace %.0f MiB each) %.3f ms, peak %.1f MiB; bit-equal %s"
+    print("hosted N=%d: K2 in one launch (workspace %.0f MiB) %.3f ms, peak "
+          "%.1f MiB; row chunks of %d (%d launches, workspace %.0f MiB "
+          "each) %.3f ms, peak %.1f MiB; bit-equal %s; engine.step (the "
+          "symmetric pass, %d row launches) %.3f ms, peak %.1f MiB, forces "
+          "vs K2 max|err| %.6e /max|F| %.6e (tol %.1e)"
           % (n, _workspace_bytes(n, n) / mib, one_ms, one_peak / mib,
              HOSTED_CHUNK, chunks, _workspace_bytes(HOSTED_CHUNK, n) / mib,
-             got_ms, got_peak / mib, equal))
+             got_ms, got_peak / mib, equal, rows, sym_ms, sym_peak / mib,
+             err, err / scale, TOL[torch.float32]))
     if not equal:
         raise AssertionError("hosted: the row-chunked step differs from "
-                             "engine.step at N=%d" % n)
+                             "K2's one launch at N=%d" % n)
+    if not err <= TOL[torch.float32] * scale:
+        raise AssertionError("hosted: engine.step's forces differ from K2's "
+                             "at N=%d by %.6e of %.6e" % (n, err, scale))
     _frames(cfg, got, n, dev)
-    return k2
+    return k2, rows
 
 
 def _huge_chunk(dev):
@@ -2766,14 +3003,16 @@ def _huge_chunk(dev):
     full = _workspace_bytes(n, n)
     total = torch.cuda.get_device_properties(dev).total_memory
     step_rows = cuda_step.streamed_rows(n, torch.float32)
+    tiles = cuda_step.symmetric_row_tiles(n)
     gb = 1e9
     print("hosted N=%d: one launch's workspace %.3f GB (%.2f GiB) against "
-          "total_memory %.3f GB (%.2f GiB); engine.step takes K2 in %d "
-          "launches of %d rows (workspace %.3f GB each); the coincidence "
+          "total_memory %.3f GB (%.2f GiB); streamed_forces takes K2 in %d "
+          "launches of %d rows (workspace %.3f GB each), engine.step the "
+          "symmetric pass in %d row launches of %d tiles; the coincidence "
           "flag %s"
           % (n, full / gb, full / 2**30, total / gb, total / 2**30,
              -(-n // step_rows), step_rows, _workspace_bytes(step_rows, n)
-             / gb, bool(flag)))
+             / gb, _row_launches(n), tiles, bool(flag)))
 
     def rows(lo, hi):
         return [t[lo:hi] for t in cols]
@@ -2782,7 +3021,7 @@ def _huge_chunk(dev):
     (fx, fy), ms, peak = _peak(lambda: cuda_step.block_forces_streamed(
         cfg, *rows(r0, r0 + k), *cols, row_g0=r0, col_g0=0, biased=flag),
         dev)
-    _, launches = _read_counts("hosted N=%d row chunk" % n, t0, 0, 1)
+    _, launches, _ = _read_counts("hosted N=%d row chunk" % n, t0, 0, 1)
     head = cuda_step.block_forces_streamed(
         cfg, *rows(r0, r0 + HEAD_ROWS), *cols, row_g0=r0, col_g0=0,
         biased=flag)
@@ -2839,55 +3078,80 @@ def _frames(cfg, st, n, dev):
 
 def _hosted_cli(dev, tmp):
     """(c): the CLI at N=HOSTED_CLI_N with secs_per_update=1 for
-    HOSTED_CLI_STEPS steps, without and with NBODY_HUGE_THRESHOLD below N
-    (and K2_WORKSPACE_BYTES lowered so that the step takes K2 in launches
-    of HOSTED_CLI_CHUNK rows): stdout byte-equal, the first frame's md5
-    equal, K2 launched steps + 1 (the discarded warm-up step) times without
-    and steps x chunks with.  Returns the huge run's K2 launches."""
+    HOSTED_CLI_STEPS steps: the symmetric pass (one row launch a step and
+    one for the discarded warm-up step); NBODY_HUGE_THRESHOLD below N with
+    K2_WORKSPACE_BYTES lowered to HOSTED_CLI_CHUNK rows of K2's band
+    partials, so that the huge branch (no discarded step) takes the
+    symmetric pass in launches of one row tile; and K2 in one launch a
+    step, the symmetric pass turned off.  The huge run's stdout and first
+    frame's md5 equal the symmetric run's, byte for byte (the row launches
+    give the one launch's forces); the symmetric run's printed positions
+    and velocities lie within two printed units (2e-3) of K2's and its
+    forces within the kernels' TOL (2e-6) of their max.  Returns (K2's launches, the huge run's row
+    launches)."""
     from parallel_nbody_tpu_torch.ops import cuda_step
     from parallel_nbody_tpu_torch.utils import ppm
     arena = os.path.join(tmp, "hosted.ppm")
     ppm.create(arena, 1024, 768)
     argv = [str(HOSTED_CLI_N), "1", arena, str(HOSTED_CLI_STEPS),
             "--no-clamp", "--pallas"]
-    chunks = -(-HOSTED_CLI_N // HOSTED_CLI_CHUNK)
+    one_k2 = mock.patch.object(cuda_step, "takes_symmetric",
+                               lambda *a, **k: False)
     runs = {}
-    for label, env, want_k2 in (
-            ("one launch", {}, HOSTED_CLI_STEPS + 1),
+    for label, env, patch, k2_steps, row_steps in (
+            ("symmetric", {}, contextlib.nullcontext(), 0,
+             HOSTED_CLI_STEPS + 1),
             ("huge", {"NBODY_HUGE_THRESHOLD": str(HOSTED_CLI_N // 2)},
-             HOSTED_CLI_STEPS * chunks)):
+             contextlib.nullcontext(), 0, HOSTED_CLI_STEPS),
+            ("one K2 launch", {}, one_k2, HOSTED_CLI_STEPS + 1, 0)):
         log = os.path.join(tmp, "hosted_%d.log" % len(runs))
         budget = (_workspace_bytes(HOSTED_CLI_CHUNK, HOSTED_CLI_N) if env
                   else cuda_step.K2_WORKSPACE_BYTES)
         t0 = _reset_counts()
         with mock.patch.dict(os.environ, dict(env, NBODY_FRAME_LOG=log)), \
-                mock.patch.object(cuda_step, "K2_WORKSPACE_BYTES", budget):
+                mock.patch.object(cuda_step, "K2_WORKSPACE_BYTES", budget), \
+                patch:
             out, err = _cli(argv, "cuda")
-        _, k2 = _read_counts("hosted cli %s" % label, t0, 0, want_k2)
+            want_rows = row_steps * _row_launches(HOSTED_CLI_N)
+        _, k2, rows = _read_counts("hosted cli %s" % label, t0, 0, k2_steps,
+                                   want_rows)
         with open(log) as f:
             md5s = re.findall(r"md5=([0-9a-f]{32})", f.read())
-        runs[label] = (out, md5s, k2, _rtime(err))
-    (out0, md5s0, k2_0, rt0), (out1, md5s1, k2_1, rt1) = runs.values()
-    print("hosted cli: %s; RTIME %.3f s one launch, %.3f s huge (%d chunks "
-          "of %d); K2 launches %d and %d; frames %d and %d, first md5 %s "
-          "and %s; stdout byte-equal %s"
-          % (" ".join(argv), rt0, rt1, chunks, HOSTED_CLI_CHUNK, k2_0, k2_1,
-             len(md5s0), len(md5s1), md5s0[:1], md5s1[:1], out0 == out1))
-    _state_table(out1, HOSTED_CLI_N)
-    if out0 != out1 or not md5s0 or md5s0[:1] != md5s1[:1]:
+        runs[label] = (out, md5s, k2 or rows, _rtime(err))
+    (out_s, md5s_s, rows_s, rt_s), (out_h, md5s_h, rows_h, rt_h), \
+        (out_k, md5s_k, k2_k, rt_k) = runs.values()
+    print("hosted cli: %s; RTIME %.3f s symmetric (%d row launches), %.3f s "
+          "huge (%d row launches of one tile), %.3f s one K2 launch (%d); "
+          "frames %d, %d and %d, first md5 %s, %s and %s; huge stdout "
+          "byte-equal to the symmetric run %s"
+          % (" ".join(argv), rt_s, rows_s, rt_h, rows_h, rt_k, k2_k,
+             len(md5s_s), len(md5s_h), len(md5s_k), md5s_s[:1], md5s_h[:1],
+             md5s_k[:1], out_s == out_h))
+    _state_table(out_h, HOSTED_CLI_N)
+    if out_s != out_h or not md5s_s or md5s_s[:1] != md5s_h[:1]:
         raise AssertionError("hosted cli: the huge branch differs from the "
-                             "one-launch run")
-    return k2_1
+                             "symmetric pass's one-launch run")
+    _compare_tables("hosted cli symmetric vs one K2 launch",
+                    _state_table(out_s, HOSTED_CLI_N),
+                    _state_table(out_k, HOSTED_CLI_N), 2e-3,
+                    TOL[torch.float32])
+    if not md5s_k:
+        raise AssertionError("hosted cli: the K2 run wrote no frame")
+    return k2_k, rows_h
 
 
 def phase_hosted(dev, tmp):
     """The huge-N path: (a) _hosted_step, (b) _huge_chunk, (c)
-    _hosted_cli.  Returns ({path: K2 launches, each counted from 0}, the
-    row chunk's max |error| against the plain version)."""
-    launches = {"hosted step N=%d" % HOSTED_N: _hosted_step(dev)}
-    launches["row chunk N=%d" % HUGE_CAP_N], err = _huge_chunk(dev)
-    launches["cli huge N=%d" % HOSTED_CLI_N] = _hosted_cli(dev, tmp)
-    return launches, err
+    _hosted_cli.  Returns ({path: K2 launches, each counted from 0},
+    {path: the symmetric pass's row launches}, the row chunk's max |error|
+    against the plain version)."""
+    k2, rows = {}, {}
+    k2["hosted step N=%d" % HOSTED_N], rows["engine.step N=%d" % HOSTED_N] \
+        = _hosted_step(dev)
+    k2["row chunk N=%d" % HUGE_CAP_N], err = _huge_chunk(dev)
+    k2["cli N=%d" % HOSTED_CLI_N], rows["cli huge N=%d" % HOSTED_CLI_N] = \
+        _hosted_cli(dev, tmp)
+    return k2, rows, err
 
 
 def _bound(n_rows, n_cols):
@@ -2925,6 +3189,7 @@ def main() -> int:
         phase_build()
         max_err_k1 = phase_compare(dev)
         sym_err, sym_plain_ms, sym_plain_ms_big = phase_symmetric(dev)
+        rows_err, rows_plain_ms, rows_err_k2 = phase_symmetric_rows(dev)
         phase_sabotage(dev)
         max_err_k2, plain_ms_k2 = phase_compare_streamed(dev)
         phase_compensated(dev)
@@ -2966,7 +3231,8 @@ def main() -> int:
     print("world of one: %.1f s; emulated ranks and their sabotage: %.1f s"
           % (t_ranks - t_dist, time.perf_counter() - t_ranks))
     t_tools = time.perf_counter()
-    launches_gate_k1, launches_gate_k2 = phase_hw_validate(dev)
+    launches_gate_k1, launches_gate_k2, launches_gate_rows = \
+        phase_hw_validate(dev)
     launches_drift = phase_drift(dev)
     with tempfile.TemporaryDirectory() as tmp:
         launches_animate = phase_animate(dev, tmp)
@@ -2984,7 +3250,8 @@ def main() -> int:
           "%.1f s" % (time.perf_counter() - t_speed))
     t_hosted = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        launches_hosted, max_err_hosted = phase_hosted(dev, tmp)
+        launches_hosted, rows_hosted, max_err_hosted = phase_hosted(dev,
+                                                                    tmp)
     print("hosted (the huge-N path): %.1f s"
           % (time.perf_counter() - t_hosted))
     print("chip_smoke: %.1f s" % (time.perf_counter() - t_start))
@@ -3048,11 +3315,38 @@ def main() -> int:
         "bound_by": "operations",
         "n": MAIN_N,
     }, {
+        "name": "symmetric_rows_kernel+symmetric_fold_kernel",
+        "route": "cuda",
+        "source": source % "forces_symmetric.cu",
+        "replaces": "none (K2's square fp32 case, each pair once, in row "
+                    "launches)",
+        "launches": launches_k2[1],
+        "launches_hw_validate": launches_gate_rows,
+        "launches_scaling": launches_scaling[2],
+        "launches_hosted": rows_hosted,
+        "max_err_rel": rows_err,
+        "max_err_rel_k2": rows_err_k2,
+        "ms": times_big["symmetric_rows"],
+        "ms_biased": times_big["symmetric_rows_biased"],
+        "ms_bf16": times_big["symmetric_rows_bf16"],
+        "ms_n%d" % HUGE_SMOKE_N: times_big["symmetric_rows_n%d"
+                                           % HUGE_SMOKE_N],
+        "ms_biased_n%d" % HUGE_SMOKE_N: times_big[
+            "symmetric_rows_biased_n%d" % HUGE_SMOKE_N],
+        "k2_ms_n%d" % HUGE_SMOKE_N: times_big["K2_n%d" % HUGE_SMOKE_N],
+        "k2_ms_biased_n%d" % HUGE_SMOKE_N: times_big["K2_biased_n%d"
+                                                     % HUGE_SMOKE_N],
+        "plain_ms_n%d" % (BIG_N + 77): rows_plain_ms,
+        # The reference's work: 20 FP32 operations per unordered pair.
+        "bound_ms": BIG_N * (BIG_N - 1) / 2 * 20 / PEAK_FP32_FLOPS * 1e3,
+        "bound_by": "operations",
+        "n": BIG_N,
+    }, {
         "name": "band_partials_kernel+band_fold_kernel",
         "route": "cuda",
         "source": source % "forces_streamed.cu",
         "replaces": replaces % 344,
-        "launches": launches_k2,
+        "launches": launches_k2[0],
         "launches_emulated_ranks": {"2 allgather": launches_ranks_k2},
         "launches_hw_validate": launches_gate_k2,
         "launches_scaling": launches_scaling[1],

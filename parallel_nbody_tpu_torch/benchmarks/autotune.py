@@ -35,6 +35,7 @@ import sys
 import torch
 
 from ..config import SimConfig
+from ..ops import cuda_step
 from ..ops.cuda_step import (block_forces, block_forces_streamed,
                              takes_symmetric)
 from ..state import random_state
@@ -62,8 +63,10 @@ def _kernel(device, n, band) -> str:
     """The kernel that ``time_pass`` times."""
     if band is not None:
         return "K2"
-    return ("symmetric" if device.type == "cuda" and takes_symmetric(
-        torch.float32, n, n, row_g0=0, col_g0=0, accum="plain") else "K1")
+    symmetric = (device.type == "cuda" and n <= cuda_step.STREAMED_ABOVE
+                 and takes_symmetric(torch.float32, n, n, row_g0=0,
+                                     col_g0=0, accum="plain"))
+    return "symmetric" if symmetric else "K1"
 
 
 def time_pass(device, n, band, reps) -> dict:

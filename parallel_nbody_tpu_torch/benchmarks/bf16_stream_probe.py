@@ -1,8 +1,9 @@
 """Does bf16 storage save K2 bandwidth at N=1M?
 
 The counterpart of the JAX package's ``benchmarks/bf16_stream_probe.py``
-(``:40-80``): the fp32 and the bf16 force pass at N=1048576 through
-``cuda_forces`` (K2, band 65536), from ``random_state`` (a
+(``:40-80``): the fp32 and the bf16 force pass at N=1048576 through K2
+(``streamed_forces``, band 65536; ``cuda_forces`` takes the symmetric
+pass there on a card), from ``random_state`` (a
 ``torch.Generator`` seeded with 0; the bf16 state is the fp32 one
 rounded), in the biased variant that ``pallas_forces`` runs by default.
 bf16 is storage only: K2 loads it and upcasts, and computes
@@ -30,7 +31,7 @@ import sys
 import torch
 
 from ..config import SimConfig
-from ..ops.cuda_step import cuda_forces
+from ..ops.cuda_step import streamed_forces
 from ..state import random_state
 from ..utils.device import tool_argv
 from ._tools import best_seconds, fingerprint, record_path, write_record
@@ -55,7 +56,7 @@ def probe(device, n: int | None = None, reps: int = REPS,
         out = []
 
         def forces():
-            out[:] = cuda_forces(cfg, *b, biased=True)
+            out[:] = streamed_forces(cfg, *b, biased=True)
 
         seconds = best_seconds(forces, device, reps)
         if not all(bool(torch.isfinite(t).all()) for t in out):

@@ -21,9 +21,10 @@ configuration (fp32, ``kernel="cuda"``) to a float64 oracle:
           ~N^2 / (2 * 1024 * 768) coincident pairs whose members diverge
           by ~3e-3 between fp32 and fp64, and at N=8192 they reach the p99
           rank.
-  case C  N=262144 (K2): the force operator on the first 4096 rows against
-          float64 rows, on the initial state and on the state the card
-          evolved for 20 steps.
+  case C  N=262144 (past K1's range: on the card the symmetric pass in
+          row launches, K2 before it): the force operator on the first
+          4096 rows against float64 rows, on the initial state and on the
+          state the card evolved for 20 steps.
   D, D', E the ring, all-gather and 1x1-grid programs (``parallel/``) in a
           process group of this process alone, 20 steps at N=262144,
           against case C's trajectory (bit-equal expected).

@@ -9,7 +9,8 @@ The counterpart of the JAX package's ``benchmarks/run_benchmarks.py``:
     and on the CPU: seconds, GFLOPS by the reference's model and pairs/s.
   - ``cuda_grid`` (on the card only): N in {4096, 16384, 65536, 262144,
     1048576, 2097152} (``--quick``: 4096, 16384) through ``engine.run`` in
-    fp32 with ``kernel="cuda"`` (K1, and K2 above 131072 bodies), with the
+    fp32 with ``kernel="cuda"`` (K1's symmetric pass, and above 131072
+    bodies the symmetric pass in row launches, in K2's place), with the
     JAX tool's step count ``k`` (about 2e11 pair evaluations, 3 to 200
     steps), after one warm-up step, timed on the host clock between two
     ``torch.cuda.synchronize()``.  The JAX tool's per-dispatch ``chunk``
@@ -26,7 +27,9 @@ The counterpart of the JAX package's ``benchmarks/run_benchmarks.py``:
     the difference grows like the square root of the tile count: on the
     H100 it measured 1.8e-7 of max|F| at N=1048576 and 2.7e-7 at 2097152,
     and HOLD_TOL = 2e-6 (chip_smoke.py's bound for K1 and K2) leaves a
-    factor of 7.
+    factor of 7.  The symmetric pass, which makes that first pass on the
+    card since it took K2's square fp32 calls, sums each pair once in
+    another order, and is held to the same bound.
   - ``shard_grid``: N=8192 (``--quick``: 1024), 100 steps (``--quick``:
     10), the all-gather and ring programs over every card through the CLI
     (``--devices=K --fast --run-xps``, one NCCL rank a card); on the CPU
@@ -113,8 +116,8 @@ def hold_rows(n: int):
 
 
 def hold_first_pass(cfg, state) -> dict:
-    """K2's first force pass at ``state`` (``cuda_forces``, as the step
-    makes it) against its plain version on ``HOLD_ROWS`` rows."""
+    """The first force pass at ``state`` (``cuda_forces``, as the step
+    makes it) against K2's plain version on ``HOLD_ROWS`` rows."""
     s = state
     biased = any_coincident(s.x, s.y, s.mass)
     fx, fy = cuda_forces(cfg, s.x, s.y, s.mass, s.radius, biased=biased)
@@ -145,8 +148,8 @@ def cuda_grid(device, quick: bool, log=print) -> dict:
             row["hold"] = hold_first_pass(cfg, st)
             log("hold N=%d: %s" % (n, json.dumps(row["hold"])))
             if not row["hold"]["ok"]:
-                raise AssertionError("K2 at N=%d disagrees with its plain "
-                                     "version: %s" % (n, row["hold"]))
+                raise AssertionError("the pass at N=%d disagrees with K2's "
+                                     "plain version: %s" % (n, row["hold"]))
         k = grid_steps(n)
         rtime = time_run(cfg, st, k, device)
         row.update(steps=k, ms_per_step=rtime / k * 1e3,

@@ -8,15 +8,17 @@ inner loop of each kernel: a loop that ends in a backward branch, reads
 shared memory, holds no barrier and no other such loop, i.e. the sweep over
 a staged column tile.  The line gives the loop's instructions per pair and
 their mix, and for the force kernels K1 and K2 which of their three pair
-loops it is (``loop_roles``).  The symmetric kernel (K1's square fp32 case,
-csrc/forces_symmetric.cu) has two loops that evaluate each unordered pair
-once, for both bodies (the ones with shuffles: unbiased and constant bias),
-whose counts are per unordered pair, and K1's three loops on its diagonal
-tiles.  The parity pass (csrc/forces_trig.cu) has one
-loop, a pass of which evaluates one ordered pair a thread in float64 and
-adds its group's terms; its out-of-line slow paths (the argument reduction
-of huge angles, a division's special cases) lie inside the loop's address
-range too, so its count is an upper bound of the path that runs.  Each SM
+loops it is (``loop_roles``).  The symmetric kernels (the square fp32
+case, csrc/forces_symmetric.cu: the one-launch kernel of K1's range and
+the row-launch kernel past it, the same tile-pair body) each have two loops
+that evaluate each unordered pair once, for both bodies (the ones with
+shuffles: unbiased and constant bias), whose counts are per unordered pair,
+and K1's three loops on their diagonal tiles.  The parity pass
+(csrc/forces_trig.cu) has one loop, a pass of which evaluates one ordered
+pair a thread in float64 and adds its group's terms; its out-of-line
+slow paths (the argument reduction of huge angles, a division's special
+cases) lie inside the loop's address range too, so its count is an upper
+bound of the path that runs.  Each SM
 sub-partition issues one warp instruction per
 clock, and the FP32 pipe takes one FP32 instruction per clock from each, so
 a pair loop whose instructions are nearly all FP32 is bound by instruction
@@ -70,6 +72,8 @@ _KERNEL = re.compile(r"\d+([a-z_]+_kernel)I(\w+?)EE")
 FORCE_KERNELS = ("block_forces_kernel", "band_partials_kernel")
 ROLES = ("unbiased", "constant bias", "per-pair bias")
 SYMMETRIC_KERNEL = "block_forces_symmetric_kernel"
+SYMMETRIC_ROWS_KERNEL = "symmetric_rows_kernel"
+SYMMETRIC_KERNELS = (SYMMETRIC_KERNEL, SYMMETRIC_ROWS_KERNEL)
 SYMMETRIC_ROLES = ("symmetric unbiased", "symmetric constant bias")
 TRIG_KERNEL = "trig_forces_kernel"
 
@@ -142,10 +146,10 @@ def inner_loops(instrs):
 
 def pairs_per_pass(name: str, ops=None) -> int:
     """Pairs one pass of kernel ``name``'s inner loop covers (``ops``, the
-    loop's Counter, tells the symmetric kernel's loops apart)."""
+    loop's Counter, tells the symmetric kernels' loops apart)."""
     if name.startswith("bias_probe_mma_kernel"):
         return _MMA_PAIRS
-    if name.startswith(SYMMETRIC_KERNEL) and ops and ops["SHFL"]:
+    if name.startswith(SYMMETRIC_KERNELS) and ops and ops["SHFL"]:
         return SYMMETRIC_COLUMNS * SYMMETRIC_ROWS
     if name.startswith(TRIG_KERNEL):
         return 1
@@ -169,8 +173,8 @@ def loop_roles(rows):
     in census rows.  The per-pair loop is the one that converts the index
     difference to a float (I2F); of the other two the constant-bias loop
     has one FADD per pair more than the unbiased one, so it is the longer.
-    The symmetric kernel's loops with shuffles get SYMMETRIC_ROLES, the
-    shorter one unbiased; its other three are K1's.  The parity pass's one
+    The symmetric kernels' loops with shuffles get SYMMETRIC_ROLES, the
+    shorter one unbiased; their other three are K1's.  The parity pass's one
     loop is ``trig``.  A kernel whose loops do not fit that pattern gets no
     roles."""
     loops = collections.defaultdict(list)
@@ -179,9 +183,9 @@ def loop_roles(rows):
     for name, start, _, _, ops in rows:
         if name.startswith(TRIG_KERNEL):
             trig[name].append(start)
-        elif name.startswith(SYMMETRIC_KERNEL) and ops["SHFL"]:
+        elif name.startswith(SYMMETRIC_KERNELS) and ops["SHFL"]:
             symmetric[name].append((sum(ops.values()), start))
-        elif name.startswith(FORCE_KERNELS + (SYMMETRIC_KERNEL,)):
+        elif name.startswith(FORCE_KERNELS + SYMMETRIC_KERNELS):
             loops[name].append((start, ops))
     roles = {(name, found[0]): "trig" for name, found in trig.items()
              if len(found) == 1}

@@ -16,8 +16,10 @@ plus the JAX package's extensions, parsed the same way (cli.py of
     --fast            transcendental-free force path
     --pallas          the hand-written CUDA force kernels (implies --fast;
                       the flag keeps the JAX package's name): K1, or K2
-                      above 131072 bodies in either block.  On a CPU device
-                      the kernels' plain PyTorch versions run.
+                      above 131072 bodies in either block (in fp32 and
+                      bf16 with plain sums the symmetric pass in its
+                      place).  On a CPU device the kernels' plain PyTorch
+                      versions run.
     --trig            with --pallas: the parity mode (the reference's trig
                       force path, which is the default without --pallas)
                       through the parity pass (csrc/forces_trig.cu), on one
@@ -479,8 +481,9 @@ def _simulate(device, n, secsup, ppm_path, steps, opts, n_dev,
     # Huge single-device runs (the JAX CLI's threshold, which tests lower to
     # drive this branch at small N): a step costs a whole force pass, so no
     # step is discarded to warm up or to probe the frame cadence.  The step
-    # itself is the same at any N: K2 in row launches that bound its
-    # workspace (ops.cuda_step.streamed_forces).
+    # is engine.step's at any N: its force pass runs in row launches that
+    # bound its workspace (ops.cuda_step.symmetric_forces, or
+    # streamed_forces for K2).
     huge_threshold = int(os.environ.get("NBODY_HUGE_THRESHOLD", 2_000_000))
     huge = not multi and opts["pallas"] and n > huge_threshold
     if not multi:

@@ -1,11 +1,12 @@
-// Symmetric all-pairs forces for Hopper (sm_90a): K1's square fp32 case with
-// each unordered pair evaluated once.
+// Symmetric all-pairs forces for Hopper (sm_90a): the square fp32 case of K1
+// and K2 with each unordered pair evaluated once.
 //
-// Replaces no TPU kernel of its own.  It serves K1's square case
-// (csrc/forces.cu, which replaces pallas_step.py::_force_kernel) where the
-// row block and the column block are the same bodies at the same offsets,
-// the compute type is float32 (fp32 or bf16 storage) and the sum is plain:
-// ops/cuda_step.block_forces chooses it from what the call shows.  K1 takes
+// Replaces no TPU kernel of its own.  It serves the square case of K1
+// (csrc/forces.cu, which replaces pallas_step.py::_force_kernel) and, past
+// 131072 bodies, of K2 (csrc/forces_streamed.cu) where the row block and
+// the column block are the same bodies at the same offsets, the compute
+// type is float32 (fp32 or bf16 storage) and the sum is plain:
+// ops/cuda_step.takes_symmetric decides it from what the call shows.  K1 takes
 // every ordered pair (N^2) and applies each pair's force to its row body
 // only; the reference (nbody-seq.c) applies each pair's force to both
 // bodies, N(N-1)/2 pairs.  Here one evaluation gives both terms: with
@@ -57,7 +58,24 @@
 // same bits.  forces_streamed.cu's band_fold_kernel then adds each body's nt
 // slots in tile order 0..nt-1 and multiplies by G * m_i (storing bf16 once).
 // ops/cuda_step.symmetric_partials is this order in plain PyTorch.  The
-// workspace is 8 N^2 / 512 bytes: 64 MiB at N = 65536, 256 MiB at 131072.
+// workspace is 8 N^2 / 512 bytes: 64 MiB at N = 65536, 256 MiB at 131072,
+// 16 GiB at 1M.
+//
+// Row launches (symmetric_rows_kernel and symmetric_fold_kernel; above
+// 131072 bodies, ops/cuda_step.symmetric_forces): the same blocks, each
+// computing what it computes in one launch, restricted to the row tiles
+// t0 .. t1 - 1 (the triangle of those tiles, then the rectangle of column
+// tiles past t1).  Their slots go to two workspaces (RowSlots): `own`, the
+// launch's bodies' slots K = t0 .. nt - 1, and `beyond`, the j-side slots
+// K = t0 .. t1 - 1 of the bodies past the launch: at most R N / 32 bytes
+// for R rows, so 32768 rows a launch fit 1 GiB at N = 1M.  The fold adds
+// them to a running (2, n) fp32 sum.  Over ascending ranges of row tiles,
+// a body of tile T receives its slots in tile order: the j-side slots of
+// earlier launches in ascending K, then in its own launch the j-side slots
+// K = t0 .. T - 1 and its i-side slots K = T .. nt - 1.  So each sum is
+// band_fold_kernel's chain over the one-launch workspace, and the forces
+// are the one launch's bit for bit whatever the rows of a launch.
+// ops/cuda_step.symmetric_forces_reference is this in plain PyTorch.
 //
 // Bound: instruction issue, as K1's loop, at this loop's own count per
 // unordered pair (benchmarks/sass_census.py; 64 pairs a pass: 8 columns by
@@ -97,6 +115,8 @@ static_assert(kSub <= 32 && (kSub & (kSub - 1)) == 0, "kSub: 1, 2, .. 32");
 // Blocks an SM should hold at once, so that ptxas keeps each thread's
 // registers within 65536 / 512.
 constexpr int kMinBlocks = 512 / kThreads;
+// Threads per block of the row launches' fold.
+constexpr int kFoldThreads = 256;
 
 // Block b of the triangular grid -> its tile pair (ti, tj), tj >= ti,
 // enumerated column tile first: b = tj (tj + 1) / 2 + ti.
@@ -222,6 +242,128 @@ __device__ __forceinline__ void sweep_pairs(
   }
 }
 
+// Where a block's sums go in a row launch's workspace (row tiles
+// t0 .. t1 - 1, bodies r0 .. r1 - 1): rows() takes the i-side sums of body
+// i over tile k, cols() the j-side sums of body j (in tile tj) over tile
+// k.  `own`, (nt - t0, 2, r1 - r0), holds slot [K][c][b] of the launch's
+// bodies for K = t0 .. nt - 1 at [K - t0][c][b - r0] (the j-side slots
+// K < b's tile and the i-side ones from it on); `beyond`,
+// (t1 - t0, 2, n - r1), holds the j-side slots K = t0 .. t1 - 1 of the
+// bodies past the launch at [K - t0][c][b - r1].
+struct RowSlots {
+  float* own;
+  float* beyond;
+  long long t0, t1;
+  int64_t r0, r1, n;
+  __device__ __forceinline__ void rows(long long k, int64_t i, float sx,
+                                       float sy) const {
+    const int64_t m = r1 - r0;
+    own[(2 * (k - t0)) * m + (i - r0)] = sx;
+    own[(2 * (k - t0) + 1) * m + (i - r0)] = sy;
+  }
+  __device__ __forceinline__ void cols(long long k, long long tj, int64_t j,
+                                       float sx, float sy) const {
+    if (tj < t1) {
+      rows(k, j, sx, sy);
+      return;
+    }
+    const int64_t m = n - r1;
+    beyond[(2 * (k - t0)) * m + (j - r1)] = sx;
+    beyond[(2 * (k - t0) + 1) * m + (j - r1)] = sy;
+  }
+};
+
+// One block's tile pair (ti, tj), tj >= ti, of the row launches: stage J
+// in sx .. sr, sweep, and hand the sums to `slots`.  This is
+// block_forces_symmetric_kernel's body line for line, with its stores
+// through `slots`; that kernel keeps its own copy, so that its build stays
+// instruction for instruction the one K1's range runs (with this function
+// in its place ptxas allocates its registers differently).
+template <typename S>
+__device__ __forceinline__ void tile_pair_sums(
+    const S* __restrict__ x, const S* __restrict__ y,
+    const S* __restrict__ m, const S* __restrict__ r, int64_t n,
+    long long ti, long long tj, const bool* __restrict__ biased_flag,
+    int biased_default, const RowSlots& slots, float* sx, float* sy,
+    float* sm, float* sr, float* redx, float* redy, float* tix,
+    float* tiy) {
+  const int64_t i0 = ti * kTile, j0 = tj * kTile;
+  for (int c = threadIdx.x; c < kTile; c += kThreads) {
+    const int64_t j = j0 + c;
+    const bool in = j < n;
+    sx[c] = in ? nbody::to_compute(x[j]) : 0.0f;
+    sy[c] = in ? nbody::to_compute(y[j]) : 0.0f;
+    sm[c] = in ? nbody::to_compute(m[j]) : 0.0f;
+    sr[c] = in ? nbody::to_compute(r[j]) : 0.0f;
+  }
+  float xi[kRows], yi[kRows], mi[kRows], ri[kRows];
+  float ax[kRows], ay[kRows];
+#pragma unroll
+  for (int q = 0; q < kRows; ++q) {
+    const int64_t i = i0 + q * kThreads + threadIdx.x;
+    const bool in = i < n;
+    xi[q] = in ? nbody::to_compute(x[i]) : 0.0f;
+    yi[q] = in ? nbody::to_compute(y[i]) : 0.0f;
+    mi[q] = in ? nbody::to_compute(m[i]) : 0.0f;
+    ri[q] = in ? nbody::to_compute(r[i]) : 0.0f;
+    ax[q] = 0.0f;
+    ay[q] = 0.0f;
+  }
+  const bool biased = biased_flag != nullptr ? *biased_flag
+                                             : biased_default != 0;
+  __syncthreads();
+
+  if (ti == tj) {
+    // K1's sweep of each row over the tile's 128-column blocks, in order;
+    // row q * kThreads + t sits at its place in a 128-row block of the tile,
+    // the same block for every thread of a warp.
+#pragma unroll 1
+    for (int p = 0; p < kRows * kBlocksPerTile; ++p) {
+      const int q = p / kBlocksPerTile, cb = p % kBlocksPerTile;
+      const int row = q * kThreads + threadIdx.x;
+      float px = 0.0f, py = 0.0f;
+      nbody::sweep_segment<float>(
+          sx + cb * kBlock, sy + cb * kBlock, sm + cb * kBlock,
+          sr + cb * kBlock, pick(xi, q), pick(yi, q), pick(ri, q), biased,
+          static_cast<long long>(row / kBlock) * kBlock,
+          static_cast<long long>(cb) * kBlock, row % kBlock, px, py);
+#pragma unroll
+      for (int k = 0; k < kRows; ++k) {
+        if (q == k) {
+          ax[k] += px;
+          ay[k] += py;
+        }
+      }
+    }
+  } else if (biased) {
+    sweep_pairs<true>(sx, sy, sm, sr, xi, yi, mi, ri, ax, ay, tix, tiy, redx,
+                      redy);
+  } else {
+    sweep_pairs<false>(sx, sy, sm, sr, xi, yi, mi, ri, ax, ay, tix, tiy, redx,
+                       redy);
+  }
+
+#pragma unroll
+  for (int q = 0; q < kRows; ++q) {
+    const int64_t i = i0 + q * kThreads + threadIdx.x;
+    if (i < n) slots.rows(tj, i, ax[q], ay[q]);
+  }
+  if (ti == tj) return;
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < kRows; ++q) {
+    const int c = q * kThreads + threadIdx.x;
+    float jx = redx[c], jy = redy[c];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) {
+      jx += redx[w * kTile + c];
+      jy += redy[w * kTile + c];
+    }
+    const int64_t j = j0 + c;
+    if (j < n) slots.cols(ti, tj, j, jx, jy);
+  }
+}
+
 template <typename S>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 block_forces_symmetric_kernel(
@@ -318,6 +460,84 @@ block_forces_symmetric_kernel(
   }
 }
 
+// Block b of a row launch's grid -> its tile pair: the triangle of the
+// launch's own tiles first, in the whole grid's order (b = tj (tj + 1) / 2
+// + ti counted from t0), then the rectangle of column tiles past t1, row
+// tile fastest.
+__device__ __forceinline__ void row_tile_pair(long long b, long long t0,
+                                              long long rows, long long& ti,
+                                              long long& tj) {
+  const long long tri = rows * (rows + 1) / 2;
+  if (b < tri) {
+    tile_pair(b, ti, tj);
+    ti += t0;
+    tj += t0;
+  } else {
+    b -= tri;
+    tj = t0 + rows + b / rows;
+    ti = t0 + b % rows;
+  }
+}
+
+template <typename S>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+symmetric_rows_kernel(
+    const S* __restrict__ x, const S* __restrict__ y,
+    const S* __restrict__ m, const S* __restrict__ r, int64_t n,
+    long long t0, long long t1, const bool* __restrict__ biased_flag,
+    int biased_default, float* __restrict__ own,
+    float* __restrict__ beyond) {
+  __shared__ float sx[kTile], sy[kTile], sm[kTile], sr[kTile];
+  __shared__ float redx[kWarps * kTile], redy[kWarps * kTile];
+  __shared__ float tix[kTile], tiy[kTile];
+
+  long long ti, tj;
+  row_tile_pair(blockIdx.x, t0, t1 - t0, ti, tj);
+  const int64_t r1 = t1 * kTile < n ? t1 * kTile : n;
+  tile_pair_sums<S>(x, y, m, r, n, ti, tj, biased_flag, biased_default,
+                    RowSlots{own, beyond, t0, t1, t0 * kTile, r1, n}, sx, sy,
+                    sm, sr, redx, redy, tix, tiy);
+}
+
+// A row launch's fold, one thread a body from r0 on, each sum a plain fp32
+// chain in tile order from 0.0, as band_fold_kernel adds the one-launch
+// workspace: the launch's bodies add their `own` slots to what earlier
+// launches left in `acc` (nothing when t0 == 0), multiply by G * m_i and
+// store the result; the bodies past the launch add their `beyond` slots and
+// keep the sum in `acc`, (2, n) fp32, for the launches after.
+template <typename S>
+__global__ void __launch_bounds__(kFoldThreads) symmetric_fold_kernel(
+    const float* __restrict__ own, const float* __restrict__ beyond,
+    int64_t n, long long t0, long long t1, float* __restrict__ acc,
+    const S* __restrict__ m, float gravity, S* __restrict__ xf,
+    S* __restrict__ yf) {
+  const long long nt = (n + kTile - 1) / kTile;
+  const int64_t r0 = t0 * kTile, r1 = t1 * kTile < n ? t1 * kTile : n;
+  const int64_t b =
+      r0 + static_cast<int64_t>(blockIdx.x) * kFoldThreads + threadIdx.x;
+  if (b >= n) return;
+  float ax = t0 == 0 ? 0.0f : acc[b];
+  float ay = t0 == 0 ? 0.0f : acc[n + b];
+  if (b < r1) {
+    const int64_t w = r1 - r0;
+    for (long long k = 0; k < nt - t0; ++k) {
+      ax += own[(2 * k) * w + (b - r0)];
+      ay += own[(2 * k + 1) * w + (b - r0)];
+    }
+    const float gmi = nbody::to_compute(m[b]) * gravity;
+    nbody::store(xf + b, ax * gmi);
+    nbody::store(yf + b, ay * gmi);
+    return;
+  }
+  const int64_t w = n - r1;
+  for (long long k = 0; k < t1 - t0; ++k) {
+    ax += beyond[(2 * k) * w + (b - r1)];
+    ay += beyond[(2 * k + 1) * w + (b - r1)];
+  }
+  acc[b] = ax;
+  acc[n + b] = ay;
+}
+
 template <typename S>
 int launch(const S* x, const S* y, const S* m, const S* r, int64_t n,
            int64_t tile, const bool* biased_flag, int biased_default,
@@ -334,15 +554,63 @@ int launch(const S* x, const S* y, const S* m, const S* r, int64_t n,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The tiles nt of n bodies, and whether (tile, t0, t1) is a row launch of
+// them: tile is kTile, n > 0 and 0 <= t0 < t1 <= nt.
+bool row_launch(int64_t n, int64_t tile, int64_t t0, int64_t t1,
+                int64_t& nt) {
+  nt = (n + kTile - 1) / kTile;
+  return tile == kTile && n > 0 && 0 <= t0 && t0 < t1 && t1 <= nt;
+}
+
+template <typename S>
+int launch_rows(const S* x, const S* y, const S* m, const S* r, int64_t n,
+                int64_t tile, int64_t t0, int64_t t1,
+                const bool* biased_flag, int biased_default, float* own,
+                float* beyond, void* stream) {
+  int64_t nt;
+  if (!row_launch(n, tile, t0, t1, nt)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t rows = t1 - t0;
+  const int64_t blocks = rows * (rows + 1) / 2 + rows * (nt - t1);
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  symmetric_rows_kernel<S>
+      <<<static_cast<unsigned>(blocks), kThreads, 0,
+         static_cast<cudaStream_t>(stream)>>>(x, y, m, r, n, t0, t1,
+                                              biased_flag, biased_default,
+                                              own, beyond);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename S>
+int launch_fold(const float* own, const float* beyond, int64_t n,
+                int64_t tile, int64_t t0, int64_t t1, float* acc,
+                const S* m, double gravity, S* xf, S* yf, void* stream) {
+  int64_t nt;
+  if (!row_launch(n, tile, t0, t1, nt)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t bodies = n - t0 * kTile;
+  symmetric_fold_kernel<S>
+      <<<static_cast<unsigned>((bodies + kFoldThreads - 1) / kFoldThreads),
+         kFoldThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          own, beyond, n, t0, t1, acc, m, static_cast<float>(gravity), xf,
+          yf);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
 // Each returns the cudaError_t of the launch (0 on success), or
 // cudaErrorInvalidValue without launching when `tile` is not this build's
-// kTile (the caller sizes the (nt, 2, n) fp32 workspace `ws` from it) or n
-// is not positive.  Pointers are device pointers; biased_flag may be null,
-// and then biased_default decides.  Fold `ws` with nbody_band_fold_*.
+// kTile (the caller sizes the workspaces from it) or n is not positive.
+// Pointers are device pointers; biased_flag may be null, and then
+// biased_default decides.
+
+// The one-launch pass into the (nt, 2, n) fp32 workspace `ws`; fold it with
+// nbody_band_fold_*.
 int nbody_block_forces_symmetric_f32(const float* x, const float* y,
                                      const float* m, const float* r,
                                      int64_t n, int64_t tile,
@@ -359,6 +627,47 @@ int nbody_block_forces_symmetric_bf16(
     int biased_default, float* ws, void* stream) {
   return launch<__nv_bfloat16>(x, y, m, r, n, tile, biased_flag,
                                biased_default, ws, stream);
+}
+
+// One row launch, row tiles t0 .. t1 - 1 (0 <= t0 < t1 <= nt), into the
+// fp32 workspaces `own`, (nt - t0, 2, r1 - r0), and `beyond`,
+// (t1 - t0, 2, n - r1), with r0 = t0 * tile and r1 = min(n, t1 * tile).
+int nbody_symmetric_rows_f32(const float* x, const float* y, const float* m,
+                             const float* r, int64_t n, int64_t tile,
+                             int64_t t0, int64_t t1, const bool* biased_flag,
+                             int biased_default, float* own, float* beyond,
+                             void* stream) {
+  return launch_rows<float>(x, y, m, r, n, tile, t0, t1, biased_flag,
+                            biased_default, own, beyond, stream);
+}
+
+int nbody_symmetric_rows_bf16(const __nv_bfloat16* x, const __nv_bfloat16* y,
+                              const __nv_bfloat16* m, const __nv_bfloat16* r,
+                              int64_t n, int64_t tile, int64_t t0, int64_t t1,
+                              const bool* biased_flag, int biased_default,
+                              float* own, float* beyond, void* stream) {
+  return launch_rows<__nv_bfloat16>(x, y, m, r, n, tile, t0, t1, biased_flag,
+                                    biased_default, own, beyond, stream);
+}
+
+// That launch's fold: the forces of bodies r0 .. r1 - 1 into (xf, yf), the
+// running sums of the bodies past r1 into `acc`, (2, n) fp32 (read from the
+// second launch on; unused, and may be null, when t1 == nt and t0 == 0).
+int nbody_symmetric_fold_f32(const float* own, const float* beyond,
+                             int64_t n, int64_t tile, int64_t t0, int64_t t1,
+                             float* acc, const float* m, double gravity,
+                             float* xf, float* yf, void* stream) {
+  return launch_fold<float>(own, beyond, n, tile, t0, t1, acc, m, gravity,
+                            xf, yf, stream);
+}
+
+int nbody_symmetric_fold_bf16(const float* own, const float* beyond,
+                              int64_t n, int64_t tile, int64_t t0, int64_t t1,
+                              float* acc, const __nv_bfloat16* m,
+                              double gravity, __nv_bfloat16* xf,
+                              __nv_bfloat16* yf, void* stream) {
+  return launch_fold<__nv_bfloat16>(own, beyond, n, tile, t0, t1, acc, m,
+                                    gravity, xf, yf, stream);
 }
 
 }  // extern "C"

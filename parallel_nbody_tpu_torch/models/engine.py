@@ -6,7 +6,8 @@ with a buffer flip.  Here ``run`` is a Python loop of ``step``, each step a
 sequence of eager tensor ops on the state's device; with ``kernel="cuda"``
 the force pass is ``ops/cuda_step.step_forces`` of ``cuda_forces``, which
 chooses the hand-written kernels (K1, or K2 above 131072 bodies, in several
-row launches past K2's workspace bound; in the parity mode,
+row launches past K2's workspace bound, and there in fp32 and bf16 with
+plain sums the symmetric pass in row launches; in the parity mode,
 ``force_mode="trig"`` in float64, the parity pass at any N).  Nothing in the
 loop reads a value back to the host, so on a GPU the launches queue without
 waiting for the device (the NaN-check debug mode of ``run`` aside).
@@ -69,8 +70,9 @@ def make_hosted_row_step(cfg: SimConfig, n: int, row_chunk: int = 524288):
     """``step`` of ``n`` bodies with the force pass through K2 in launches
     of ``row_chunk`` rows at any ``n`` (``cuda_step.streamed_forces``): the
     counterpart of the JAX package's ``make_hosted_row_step``, for a caller
-    that sets the chunk itself, as ``benchmarks/huge_n`` does.  ``step``
-    runs K2 only above 131072 bodies, in launches sized by
+    that sets the chunk itself, as ``benchmarks/huge_n`` does.  Above
+    131072 bodies ``step`` runs the symmetric pass (fp32 and bf16, plain
+    sums) or K2, each in launches sized by
     ``cuda_step.K2_WORKSPACE_BYTES``.  The chunks bound K2's workspace; a
     CUDA launch has no time limit (the JAX package's chunks also keep each
     TPU dispatch short).  ``any_coincident`` runs once a step, and its 0-d

@@ -4,8 +4,9 @@ Two libraries, each built on its own so that a compile error in one never
 blocks the other, and no source's change or flag reaches the other's build:
 
 - ``load("kernels")`` (the default): everything a step launches,
-  ``csrc/forces.cu`` (K1), ``csrc/forces_symmetric.cu`` (K1's square fp32
-  case, each pair once), ``csrc/forces_streamed.cu`` (K2),
+  ``csrc/forces.cu`` (K1), ``csrc/forces_symmetric.cu`` (the square fp32
+  case, each pair once: K1's range in one launch, beyond it in row
+  launches), ``csrc/forces_streamed.cu`` (K2),
   ``csrc/forces_trig.cu`` (the parity pass: float64, the reference's
   transcendental pair math) and ``csrc/coincident.cu`` (the coincidence
   flag, a hash-table duplicate test), into
@@ -71,6 +72,16 @@ DTYPE_SUFFIXES = ("f32", "f64", "bf16")
 # biased default, workspace, stream.
 _SYMMETRIC_STEM = "nbody_block_forces_symmetric"
 _SYMMETRIC_ARGTYPES = [_VP] * 4 + [_I64, _I64, _VP, _INT, _VP, _VP]
+# Its row launches: 4 pointers, n, tile, first and end row tile, biased
+# flag pointer, biased default, the two workspaces, stream; and their fold:
+# the two workspaces, n, tile, first and end row tile, the running sums,
+# masses, gravity, 2 outputs, stream.
+_SYMMETRIC_ROW_STEMS = {
+    "nbody_symmetric_rows": [_VP] * 4 + [_I64] * 4 + [_VP, _INT, _VP, _VP,
+                                                      _VP],
+    "nbody_symmetric_fold": [_VP, _VP] + [_I64] * 4 + [
+        _VP, _VP, ctypes.c_double, _VP, _VP, _VP],
+}
 # The probes' launchers: variant, 8 input pointers (xi, yi, mi, ri, xj, yj,
 # mj, rj), n, tile_i, tile_j, 2 outputs, stream.
 _PROBE_ARGTYPES = [_INT] + [_VP] * 8 + [_I64] * 3 + [_VP] * 3
@@ -94,6 +105,9 @@ LIBRARIES = {
                     for stem, argtypes in _KERNEL_STEMS.items()
                     for suffix in DTYPE_SUFFIXES},
                  **{"%s_%s" % (_SYMMETRIC_STEM, suffix): _SYMMETRIC_ARGTYPES
+                    for suffix in ("f32", "bf16")},
+                 **{"%s_%s" % (stem, suffix): argtypes
+                    for stem, argtypes in _SYMMETRIC_ROW_STEMS.items()
                     for suffix in ("f32", "bf16")},
                  "nbody_trig_forces_f64": _TRIG_ARGTYPES,
                  **{"%s_%s" % (_COINCIDENT_STEM, suffix): _COINCIDENT_ARGTYPES

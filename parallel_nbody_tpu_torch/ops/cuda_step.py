@@ -23,13 +23,19 @@ massive bodies coincide — ``forces_coincident_dispatch`` chooses it from
 - ``block_forces`` (K1, csrc/forces.cu, ``block_forces_one_sided``; Pallas
   ``_force_kernel``) sums each row over all columns in 128-wide tiles.
   Where the call shows one block of bodies against itself (equal lengths at
-  equal offsets, to ``STREAMED_ABOVE`` bodies) in float32 with plain sums
-  (``takes_symmetric``), it launches csrc/forces_symmetric.cu instead, which evaluates each
-  unordered pair once and applies it to both bodies, in the order that
-  ``symmetric_partials`` writes down, then folds with K2's ``band_fold``.
+  equal offsets) in float32 with plain sums (``takes_symmetric``), to
+  ``STREAMED_ABOVE`` bodies, it launches csrc/forces_symmetric.cu instead,
+  which evaluates each unordered pair once and applies it to both bodies,
+  in the order that ``symmetric_partials`` writes down, then folds with
+  K2's ``band_fold``.
 - ``block_forces_streamed`` (K2, csrc/forces_streamed.cu; Pallas
   ``_force_kernel_streamed``) sums each row band by band (``band`` columns,
   65536 by default) and folds the band partials in band order.
+- ``symmetric_forces`` is the symmetric pass past ``STREAMED_ABOVE``, in
+  place of K2 for the calls ``takes_symmetric`` admits: the same kernel's
+  blocks in launches of row tiles, each launch's workspace within
+  ``K2_WORKSPACE_BYTES``, folded in the one launch's order
+  (``symmetric_forces_reference``), so its forces are the one launch's.
 
 ``accum="compensated"`` Kahan-folds each tile's partial into the row sum and,
 in K2, each band partial into the total; a band's own compensation term is
@@ -46,7 +52,8 @@ rounded to bfloat16 once (``pallas_step._compute_dtype``).
 
 ``block_forces_auto`` is the one place that picks K1 or K2, for every block
 pair, as ``pallas_block_forces_auto`` does: K2 when either block holds more
-than ``STREAMED_ABOVE`` bodies.  On the H100 that threshold is no memory
+than ``STREAMED_ABOVE`` bodies (on a card the symmetric pass where
+``takes_symmetric`` holds).  On the H100 that threshold is no memory
 limit (K1 streams its column tiles from device memory at any N); it is kept
 so that the port sums in the same structure as the JAX package at every N.
 K2's workspace of band partials grows with rows x columns, so K2 runs in row
@@ -61,8 +68,8 @@ hash table of the bodies' positions; its plain version sorts.
 
 On CUDA tensors each wrapper launches its kernel or raises; on CPU tensors
 it runs its plain PyTorch version (``block_forces_reference``,
-``block_forces_streamed_reference``, ``trig_forces_reference``,
-``any_coincident_reference``).
+``block_forces_streamed_reference``, ``symmetric_forces_reference``,
+``trig_forces_reference``, ``any_coincident_reference``).
 """
 
 from __future__ import annotations
@@ -254,6 +261,40 @@ def _tile_sums(terms, tile):
     return out
 
 
+def _row_tile_slots(x, y, mass, radius, ti, flag, tile):
+    """The slots that row tile ``ti``'s blocks write, as ``symmetric_partials``
+    lays them out: (own, cols), own (nt - ti, 2, rows) holding the tile's
+    bodies' sums over tiles ti .. nt-1 (the diagonal first), cols (2, n - r1)
+    the sums over the tile's bodies of every body past it."""
+    dtype, dev = x.dtype, x.device
+    eps = _EPS[dtype]
+    n = x.shape[0]
+    nt = -(-n // tile)
+    r0, r1 = ti * tile, min(n, (ti + 1) * tile)
+    rows = slice(r0, r1)
+    dx = x[None, r0:] - x[rows, None]
+    if flag is not None:
+        b = dx + dx_bias(range(r0, r1), n - r0, row_g0=0, col_g0=r0,
+                         row_block=TILE, tile=TILE, dtype=dtype, device=dev)
+        dx = b if flag is True else torch.where(flag, b, dx)
+    dy = y[None, r0:] - y[rows, None]
+    dsqr = dx * dx + dy * dy
+    mind = radius[rows, None] + radius[None, r0:]
+    forced = torch.maximum(dsqr, mind * mind)
+    w = torch.rsqrt(forced * forced * dsqr + eps)
+    sj = mass[None, r0:] * w
+    si = mass[rows, None] * w
+    own = torch.zeros((nt - ti, 2, r1 - r0), dtype=dtype, device=dev)
+    cols = torch.zeros((2, n - r1), dtype=dtype, device=dev)
+    d = r1 - r0  # the diagonal tile's columns come first
+    for c, dc in ((0, dx), (1, dy)):
+        own[0, c] = _tile_sums(sj[:, :d] * dc[:, :d], tile)[:, 0]
+        if r1 < n:
+            own[1:, c] = _tile_sums(sj[:, d:] * dc[:, d:], tile).t()
+            cols[c] = (-(si[:, d:] * dc[:, d:])).sum(0)
+    return own, cols
+
+
 def symmetric_partials(x, y, mass, radius, *, biased,
                        tile: int = SYMMETRIC_TILE):
     """The symmetric kernel's workspace in plain PyTorch: (nt, 2, n) raw
@@ -270,36 +311,41 @@ def symmetric_partials(x, y, mass, radius, *, biased,
     takes K1's one-sided terms of its rows over its own columns into slot
     ``[I, :, i]``, summed the same way.  The bias is K1's: 128-row blocks against 128-wide
     column tiles at equal offsets, so ``tile`` must be a multiple of 128."""
-    dtype, dev = x.dtype, x.device
-    eps = _EPS[dtype]
     flag = _flag(biased)
     n = x.shape[0]
     nt = -(-n // tile)
-    ws = torch.zeros((nt, 2, n), dtype=dtype, device=dev)
+    ws = torch.zeros((nt, 2, n), dtype=x.dtype, device=x.device)
     for ti in range(nt):
         r0, r1 = ti * tile, min(n, (ti + 1) * tile)
-        rows = slice(r0, r1)
-        dx = x[None, r0:] - x[rows, None]
-        if flag is not None:
-            b = dx + dx_bias(range(r0, r1), n - r0, row_g0=0, col_g0=r0,
-                             row_block=TILE, tile=TILE, dtype=dtype,
-                             device=dev)
-            dx = b if flag is True else torch.where(flag, b, dx)
-        dy = y[None, r0:] - y[rows, None]
-        dsqr = dx * dx + dy * dy
-        mind = radius[rows, None] + radius[None, r0:]
-        forced = torch.maximum(dsqr, mind * mind)
-        w = torch.rsqrt(forced * forced * dsqr + eps)
-        sj = mass[None, r0:] * w
-        si = mass[rows, None] * w
-        d = r1 - r0  # the diagonal tile's columns come first
-        for c, dc in ((0, dx), (1, dy)):
-            ws[ti, c, rows] = _tile_sums(sj[:, :d] * dc[:, :d], tile)[:, 0]
-            if r1 < n:
-                ws[ti + 1:, c, rows] = _tile_sums(sj[:, d:] * dc[:, d:],
-                                                  tile).t()
-                ws[ti, c, r1:] = (-(si[:, d:] * dc[:, d:])).sum(0)
+        own, cols = _row_tile_slots(x, y, mass, radius, ti, flag, tile)
+        ws[ti:, :, r0:r1] = own
+        ws[ti, :, r1:] = cols
     return ws
+
+
+def symmetric_row_partials(x, y, mass, radius, *, biased, t0: int, t1: int,
+                           tile: int = SYMMETRIC_TILE):
+    """One row launch of the symmetric pass in plain PyTorch, row tiles
+    ``t0 .. t1 - 1`` (bodies r0 = t0 * tile .. r1 - 1): (own, beyond), the
+    slots of ``symmetric_partials`` as csrc/forces_symmetric.cu's row kernel
+    writes them.  own, (nt - t0, 2, r1 - r0), holds slot ``[K, :, b]`` of the
+    launch's bodies for K = t0 .. nt-1 at ``[K - t0, :, b - r0]``; beyond,
+    (t1 - t0, 2, n - r1), the slots K = t0 .. t1-1 of the bodies past the
+    launch at ``[K - t0, :, b - r1]``."""
+    flag = _flag(biased)
+    n = x.shape[0]
+    nt = -(-n // tile)
+    r0, r1 = t0 * tile, min(n, t1 * tile)
+    own = torch.zeros((nt - t0, 2, r1 - r0), dtype=x.dtype, device=x.device)
+    beyond = torch.zeros((t1 - t0, 2, n - r1), dtype=x.dtype,
+                         device=x.device)
+    for ti in range(t0, t1):
+        a0, a1 = ti * tile - r0, min(n, (ti + 1) * tile) - r0
+        slots, cols = _row_tile_slots(x, y, mass, radius, ti, flag, tile)
+        own[ti - t0:, :, a0:a1] = slots
+        own[ti - t0, :, a1:] = cols[:, :r1 - r0 - a1]
+        beyond[ti - t0] = cols[:, r1 - r0 - a1:]
+    return own, beyond
 
 
 def block_forces_symmetric_reference(cfg: SimConfig, x, y, mass, radius, *,
@@ -313,6 +359,62 @@ def block_forces_symmetric_reference(cfg: SimConfig, x, y, mass, radius, *,
     ax, ay = _fold(ws[:, 0].t(), ws[:, 1].t(), "plain")
     gm = mass * cfg.gravity
     return (ax * gm).to(store), (ay * gm).to(store)
+
+
+def symmetric_launch_bytes(n: int, tiles: int,
+                           tile: int = SYMMETRIC_TILE) -> int:
+    """The two workspaces of a first launch of ``symmetric_forces`` over
+    ``tiles`` row tiles of ``n`` bodies, the largest of its launches: a
+    launch of R = min(n, tiles * tile) rows writes nt * R fp32 pairs for its
+    own bodies and tiles * (n - R) for the bodies past it, about R * n / 32
+    bytes.  It grows with ``tiles``."""
+    nt = -(-n // tile)
+    rows = min(n, tiles * tile)
+    return 8 * (nt * rows + tiles * (n - rows))
+
+
+def symmetric_row_tiles(n: int, tile: int = SYMMETRIC_TILE) -> int:
+    """The row tiles of one launch of ``symmetric_forces`` for ``n`` bodies:
+    the most whose ``symmetric_launch_bytes`` fit ``K2_WORKSPACE_BYTES``,
+    and at least one: one launch to N = 262144 (1 GiB), 65 tiles a launch
+    at N = 1M.  Lowering the budget forces several launches."""
+    lo, hi = 1, max(1, -(-n // tile))
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if symmetric_launch_bytes(n, mid, tile) <= K2_WORKSPACE_BYTES:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+def symmetric_forces_reference(cfg: SimConfig, x, y, mass, radius, *,
+                               biased, tile: int = SYMMETRIC_TILE):
+    """Plain PyTorch version of ``symmetric_forces``: the row launches of
+    ``symmetric_row_tiles`` tiles in ascending order,
+    each launch's slots (``symmetric_row_partials``) added to a running
+    (2, n) sum from 0, the launch's bodies' own slots in tile order and the
+    later bodies' slots from the launch in tile order, then ``G * m``.  Each
+    body thus adds its slots in tile order 0..nt-1, as
+    ``block_forces_symmetric_reference`` does, whatever the budget."""
+    store = x.dtype
+    x, y, mass, radius = _upcast((x, y, mass, radius))
+    n = x.shape[0]
+    nt = -(-n // tile)
+    step = symmetric_row_tiles(n, tile)
+    acc = torch.zeros((2, n), dtype=x.dtype, device=x.device)
+    for t0 in range(0, nt, step):
+        t1 = min(nt, t0 + step)
+        r0, r1 = t0 * tile, min(n, t1 * tile)
+        own, beyond = symmetric_row_partials(x, y, mass, radius,
+                                             biased=biased, t0=t0, t1=t1,
+                                             tile=tile)
+        for slot in own:
+            acc[:, r0:r1] += slot
+        for slot in beyond:
+            acc[:, r1:] += slot
+    gm = mass * cfg.gravity
+    return (acc[0] * gm).to(store), (acc[1] * gm).to(store)
 
 
 def block_forces_streamed_reference(cfg: SimConfig, xi, yi, mi, ri, xj, yj,
@@ -405,16 +507,18 @@ def _launch(name, stem, dtype, device, *args):
 
 def takes_symmetric(dtype, m: int, k: int, *, row_g0: int, col_g0: int,
                     accum: str) -> bool:
-    """Whether ``block_forces`` on a card takes the symmetric pass for an
-    (m, k) block pair of storage ``dtype``: the compute type is float32 (fp32
-    or bf16 storage), the sum is plain, and the call is one block of bodies
+    """Whether a card's force pass of an (m, k) block pair of storage
+    ``dtype`` is the symmetric pass: the compute type is float32 (fp32 or
+    bf16 storage), the sum is plain, and the call is one block of bodies
     against itself, which it shows as ``m == k`` and ``row_g0 == col_g0``
     (global ids name bodies in every program, so equal offsets and lengths
-    are the same bodies).  Only to ``STREAMED_ABOVE`` bodies, K1's range:
-    the (tiles, 2, m) fp32 workspace grows as m**2 / 64 bytes, 256 MiB
-    there, within K2's ``K2_WORKSPACE_BYTES``, and 16 GiB at 1M bodies."""
+    are the same bodies).  At any N: ``block_forces`` takes it in one launch
+    to ``STREAMED_ABOVE`` bodies (its (tiles, 2, m) fp32 workspace of
+    m**2 / 64 bytes is 256 MiB there, and would be 16 GiB at 1M), and
+    ``block_forces_auto`` past that in row launches (``symmetric_forces``),
+    each within ``K2_WORKSPACE_BYTES``."""
     return (_COMPUTE.get(dtype) == torch.float32 and accum == "plain"
-            and m == k and row_g0 == col_g0 and m <= STREAMED_ABOVE)
+            and m == k and row_g0 == col_g0)
 
 
 def block_forces(cfg: SimConfig, xi, yi, mi, ri, xj, yj, mj, rj, *,
@@ -424,8 +528,9 @@ def block_forces(cfg: SimConfig, xi, yi, mi, ri, xj, yj, mj, rj, *,
 
     ``biased`` is a bool, or a 0-d bool tensor that the kernel reads from
     device memory (no host sync).  Returns (xf, yf) of shape (M,) in the
-    inputs' dtype.  Where ``takes_symmetric`` holds on the card, the pass is
-    the symmetric kernel into a (nt, 2, M) fp32 workspace and its fold
+    inputs' dtype.  Where ``takes_symmetric`` holds on the card, to
+    ``STREAMED_ABOVE`` rows, the pass is the symmetric kernel in one launch
+    into a (nt, 2, M) fp32 workspace and its fold
     (``band_fold``), and adds one to ``block_forces.symmetric_launches``;
     otherwise it is K1 (``block_forces_one_sided``).  Each pass on the card
     adds one to ``block_forces.launches``.  On the CPU it is K1's plain
@@ -433,8 +538,9 @@ def block_forces(cfg: SimConfig, xi, yi, mi, ri, xj, yj, mj, rj, *,
     bodies: the symmetric pass reads only the rows.
     """
     m, k = xi.shape[0], xj.shape[0]
-    if xi.device.type != "cuda" or m == 0 or not takes_symmetric(
-            xi.dtype, m, k, row_g0=row_g0, col_g0=col_g0, accum=accum):
+    if xi.device.type != "cuda" or not 0 < m <= STREAMED_ABOVE or \
+            not takes_symmetric(xi.dtype, m, k, row_g0=row_g0,
+                                col_g0=col_g0, accum=accum):
         out = block_forces_one_sided(cfg, xi, yi, mi, ri, xj, yj, mj, rj,
                                      row_g0=row_g0, col_g0=col_g0,
                                      biased=biased, accum=accum)
@@ -541,11 +647,69 @@ def block_forces_auto(cfg: SimConfig, xi, yi, mi, ri, xj, yj, mj, rj, *,
                       accum: str = "plain"):
     """K1 or K2 by block size, as ``pallas_block_forces_auto`` chooses: K2
     in row launches (``streamed_forces``) when either block holds more than
-    ``STREAMED_ABOVE`` bodies, else ``block_forces``."""
-    fn = (streamed_forces
-          if max(xi.shape[0], xj.shape[0]) > STREAMED_ABOVE else block_forces)
+    ``STREAMED_ABOVE`` bodies, else ``block_forces``.  On a card, where
+    ``takes_symmetric`` holds past ``STREAMED_ABOVE``, the symmetric pass in
+    row launches (``symmetric_forces``) in place of K2; CPU tensors keep
+    K2's plain version there."""
+    if max(xi.shape[0], xj.shape[0]) <= STREAMED_ABOVE:
+        fn = block_forces
+    elif xi.device.type == "cuda" and takes_symmetric(
+            xi.dtype, xi.shape[0], xj.shape[0], row_g0=row_g0,
+            col_g0=col_g0, accum=accum):
+        return symmetric_forces(cfg, xi, yi, mi, ri, biased=biased)
+    else:
+        fn = streamed_forces
     return fn(cfg, xi, yi, mi, ri, xj, yj, mj, rj, row_g0=row_g0,
               col_g0=col_g0, biased=biased, accum=accum)
+
+
+def symmetric_forces(cfg: SimConfig, x, y, mass, radius, *, biased):
+    """The symmetric pass of one block of bodies against itself at any N
+    (fp32 compute, plain sums): csrc/forces_symmetric.cu's row kernel and
+    its fold, one pair of launches for each ``symmetric_row_tiles`` tiles
+    of rows (which keeps the two workspaces within
+    ``K2_WORKSPACE_BYTES``), each adding one to
+    ``symmetric_forces.launches``.  Each body's slots are added in tile
+    order, so the forces do not depend on the budget, and are
+    ``block_forces``'s one-launch symmetric pass bit for bit.  On CPU
+    tensors it is ``symmetric_forces_reference``."""
+    state = (x, y, mass, radius)
+    _check_inputs("symmetric_forces", state, state, biased, "plain")
+    if _COMPUTE[x.dtype] != torch.float32:
+        raise TypeError("symmetric_forces: dtype %s (the symmetric pass "
+                        "computes in float32)" % x.dtype)
+    if x.device.type == "cpu":
+        return symmetric_forces_reference(cfg, *state, biased=biased)
+    n = x.shape[0]
+    xf = torch.empty_like(x)
+    yf = torch.empty_like(x)
+    if n == 0:
+        return xf, yf
+    tile = SYMMETRIC_TILE
+    nt = -(-n // tile)
+    step = symmetric_row_tiles(n)
+    # The first launch's workspaces are the largest.
+    ws = torch.empty(symmetric_launch_bytes(n, step) // 4,
+                     dtype=torch.float32, device=x.device)
+    acc = (torch.empty((2, n), dtype=torch.float32, device=x.device)
+           if step < nt else None)
+    for t0 in range(0, nt, step):
+        t1 = min(nt, t0 + step)
+        r0, r1 = t0 * tile, min(n, t1 * tile)
+        own = ws[:(nt - t0) * 2 * (r1 - r0)]
+        beyond = ws[own.numel():own.numel() + (t1 - t0) * 2 * (n - r1)]
+        _launch("symmetric_forces", "nbody_symmetric_rows", x.dtype,
+                x.device, *(t.data_ptr() for t in state), n, tile, t0, t1,
+                *_flag_args(biased), own.data_ptr(), beyond.data_ptr())
+        _launch("symmetric_forces", "nbody_symmetric_fold", x.dtype,
+                x.device, own.data_ptr(), beyond.data_ptr(), n, tile, t0, t1,
+                None if acc is None else acc.data_ptr(), mass.data_ptr(),
+                float(cfg.gravity), xf.data_ptr(), yf.data_ptr())
+        symmetric_forces.launches += 1
+    return xf, yf
+
+
+symmetric_forces.launches = 0
 
 
 def streamed_rows(k: int, dtype) -> int:

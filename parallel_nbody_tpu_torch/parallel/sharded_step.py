@@ -26,7 +26,8 @@ tensors it is given and the rank's index; the collectives are only in the
 run loop, so the ranks can also be called in one process
 (``parallel.emulate``).  With ``kernel="cuda"`` every rank's pass goes
 through ``ops.cuda_step.block_forces_auto`` (K1, or K2 above 131072 bodies
-in either block) at the rank's global offsets.
+in either block; the symmetric pass for a block against itself, as
+``takes_symmetric`` says) at the rank's global offsets.
 """
 
 from __future__ import annotations

@@ -586,9 +586,11 @@ def test_render_frame_peak_memory_is_bounded(dev):
 @pytest.mark.parametrize("biased", [False, True])
 def test_hosted_row_step_on_card_is_engine_step(biased, dev):
     """The row-chunked step (K2 in chunks of 65536 rows, a tail of 77) is
-    engine.step's one K2 launch bit for bit: each row sums its columns band
-    by band in an order that does not depend on the rows in the launch, and
-    chunks that start at multiples of 128 keep the bias segments.  With
+    the same step with K2 in one launch bit for bit: each row sums its
+    columns band by band in an order that does not depend on the rows in
+    the launch, and chunks that start at multiples of 128 keep the bias
+    segments.  engine.step, whose square fp32 pass is the symmetric one
+    here, gives forces within the kernels' 2e-6 * max|F| of it.  With
     ``biased`` a coincident pair spans two chunks."""
     from parallel_nbody_tpu_torch.models import engine
     n = 262144 + 77
@@ -606,29 +608,55 @@ def test_hosted_row_step_on_card_is_engine_step(biased, dev):
     got = step_fn(st)
     torch.cuda.synchronize()
     assert cuda_step.block_forces_streamed.launches == before + 5
-    want = engine.step(cfg, st)
+    one_fn, _ = engine.make_hosted_row_step(cfg, n, row_chunk=n)
+    want = one_fn(st)
+    assert cuda_step.block_forces_streamed.launches == before + 6
     for f in ("x", "y", "xv", "yv", "xf", "yf"):
         assert torch.equal(getattr(got, f), getattr(want, f)), f
+    sym = cuda_step.symmetric_forces.launches
+    step = engine.step(cfg, st)
+    assert cuda_step.symmetric_forces.launches > sym
+    assert cuda_step.block_forces_streamed.launches == before + 6
+    for f in ("xf", "yf"):
+        w = getattr(want, f)
+        assert float((getattr(step, f) - w).abs().max()) <= \
+            TOL["float32"] * float(w.abs().max()), f
 
 
 def test_cuda_forces_row_launches_on_card(dev, monkeypatch):
-    """cuda_forces with K2_WORKSPACE_BYTES lowered to hold 65536 rows a
-    launch (5 launches at N=262144+77) gives its one launch's forces bit
-    for bit."""
+    """cuda_forces at N=262144+77, the symmetric pass (fp32, plain sums, one
+    block against itself), with K2_WORKSPACE_BYTES lowered to hold 64 row
+    tiles a launch (9 launches), gives its one launch's forces bit for bit;
+    K2 itself, called directly with the budget holding 65536 rows a launch
+    (5 launches), gives its own one launch's forces bit for bit."""
     n = 262144 + 77
     cfg = SimConfig(force_mode="fast", dtype="float32", kernel="cuda")
     st = random_state(n, cfg, torch.Generator(device=dev).manual_seed(1),
                       device=dev)
     b = (st.x, st.y, st.mass, st.radius)
     flag = cuda_step.any_coincident(st.x, st.y, st.mass)
-    want = cuda_step.cuda_forces(cfg, *b, biased=flag)
+    k2_want = cuda_step.streamed_forces(cfg, *b, biased=flag, row_chunk=n)
     bands = -(-n // cuda_step.STREAM_BAND)
-    monkeypatch.setattr(cuda_step, "K2_WORKSPACE_BYTES", 65536 * bands * 8)
-    before = cuda_step.block_forces_streamed.launches
+    tiles = -(-n // cuda_step.SYMMETRIC_TILE)
+    monkeypatch.setattr(cuda_step, "K2_WORKSPACE_BYTES",
+                        cuda_step.symmetric_launch_bytes(n, tiles))
+    want = cuda_step.symmetric_forces(cfg, *b, biased=flag)
+    monkeypatch.setattr(cuda_step, "K2_WORKSPACE_BYTES",
+                        cuda_step.symmetric_launch_bytes(n, 64))
+    assert cuda_step.symmetric_row_tiles(n) == 64
+    before = (cuda_step.symmetric_forces.launches,
+              cuda_step.block_forces_streamed.launches)
     got = cuda_step.cuda_forces(cfg, *b, biased=flag)
     torch.cuda.synchronize()
-    assert cuda_step.block_forces_streamed.launches == before + 5
+    assert (cuda_step.symmetric_forces.launches,
+            cuda_step.block_forces_streamed.launches) == (before[0] + 9,
+                                                          before[1])
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+    monkeypatch.setattr(cuda_step, "K2_WORKSPACE_BYTES", 65536 * bands * 8)
+    got = cuda_step.streamed_forces(cfg, *b, biased=flag)
+    torch.cuda.synchronize()
+    assert cuda_step.block_forces_streamed.launches == before[1] + 5
+    assert all(torch.equal(g, w) for g, w in zip(got, k2_want))
 
 
 def test_render_frame_hosted_on_card_is_render_frame(dev):
@@ -1070,6 +1098,151 @@ def test_symmetric_kick_is_k1_kick_on_card(name, dev):
 
 
 # ---------------------------------------------------------------------------
+# the symmetric pass past K1's range: row launches (symmetric_forces)
+# ---------------------------------------------------------------------------
+
+def _random_square(n, dev, seed, pair=None):
+    """``random_state`` bodies on the card, with bodies ``pair`` (a, b) put
+    at one position when given."""
+    cfg = SimConfig(force_mode="fast", dtype="float32", kernel="cuda")
+    st = random_state(n, cfg, torch.Generator(device=dev).manual_seed(seed),
+                      device=dev)
+    x, y = st.x.clone(), st.y.clone()
+    if pair is not None:
+        x[pair[1]], y[pair[1]] = x[pair[0]], y[pair[0]]
+    return (x, y, st.mass, st.radius)
+
+
+@pytest.mark.parametrize("biased", [False, True, "flag"])
+def test_symmetric_row_launches_are_one_launch_on_card(biased, dev,
+                                                       monkeypatch):
+    """At N=131072+77, K2_WORKSPACE_BYTES lowered to 64 MiB (34 tiles a
+    launch, 8 launches), the row launches give the one launch's forces bit
+    for bit, one row launch each in ``symmetric_forces.launches``."""
+    n = 131072 + 77
+    cfg = SimConfig(force_mode="fast", dtype="float32", kernel="cuda")
+    b = _random_square(n, dev, 2, pair=(5, 100000))
+    if biased == "flag":
+        biased = cuda_step.any_coincident(*b[:3])
+    tiles = -(-n // cuda_step.SYMMETRIC_TILE)
+    monkeypatch.setattr(cuda_step, "K2_WORKSPACE_BYTES",
+                        cuda_step.symmetric_launch_bytes(n, tiles))
+    before = cuda_step.symmetric_forces.launches
+    want = cuda_step.symmetric_forces(cfg, *b, biased=biased)
+    assert cuda_step.symmetric_forces.launches == before + 1
+    monkeypatch.setattr(cuda_step, "K2_WORKSPACE_BYTES", 1 << 26)
+    assert cuda_step.symmetric_row_tiles(n) == 34
+    before = cuda_step.symmetric_forces.launches
+    got = cuda_step.symmetric_forces(cfg, *b, biased=biased)
+    torch.cuda.synchronize()
+    assert cuda_step.symmetric_forces.launches == before + 8
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("row_tiles", [None, 1, 7])
+@pytest.mark.parametrize("n", [4097, 65536, 131072])
+def test_symmetric_forces_is_the_k1_range_pass_on_card(n, row_tiles, dev,
+                                                       monkeypatch):
+    """In K1's range the row launches (one, or launches of ``row_tiles``
+    tiles as K2_WORKSPACE_BYTES sets them) give block_forces's one-launch
+    symmetric pass bit for bit, biased (a coincident pair) and not, in
+    fp32 and bf16."""
+    cfg = SimConfig(force_mode="fast", dtype="float32", kernel="cuda")
+    b = _random_square(n, dev, 3, pair=(7, n - 3))
+    if row_tiles is not None:
+        monkeypatch.setattr(cuda_step, "K2_WORKSPACE_BYTES",
+                            cuda_step.symmetric_launch_bytes(n, row_tiles))
+        assert cuda_step.symmetric_row_tiles(n) == row_tiles
+    for state in (b, tuple(t.to(torch.bfloat16) for t in b)):
+        for biased in (False, True):
+            before = cuda_step.block_forces.symmetric_launches
+            want = cuda_step.block_forces(cfg, *state, *state, biased=biased)
+            assert cuda_step.block_forces.symmetric_launches == before + 1
+            got = cuda_step.symmetric_forces(cfg, *state, biased=biased)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("biased", [False, True])
+def test_symmetric_forces_near_k2_on_card(biased, dev):
+    """At N=262144+77 the symmetric pass (2 row launches) lies within the
+    kernels' 2e-6 * max|F| of K2 on every row and of K2's plain version on
+    four blocks of rows (the scaling grid's hold), and two passes give the
+    same bits."""
+    from parallel_nbody_tpu_torch.benchmarks import run_benchmarks as rb
+    n = 262144 + 77
+    cfg = SimConfig(force_mode="fast", dtype="float32", kernel="cuda")
+    b = _random_square(n, dev, 4, pair=(11, 250000))
+    flag = torch.tensor(biased, device=dev)
+    before = cuda_step.symmetric_forces.launches
+    got = cuda_step.symmetric_forces(cfg, *b, biased=flag)
+    assert cuda_step.symmetric_forces.launches == before + 2
+    again = cuda_step.symmetric_forces(cfg, *b, biased=flag)
+    assert all(torch.equal(g, w) for g, w in zip(got, again))
+    k2 = cuda_step.streamed_forces(cfg, *b, biased=flag)
+    scale = max(float(w.abs().max()) for w in k2)
+    for g, w in zip(got, k2):
+        assert float((g - w).abs().max()) <= TOL["float32"] * scale
+    for r0 in rb.hold_rows(n):
+        rows = slice(r0, r0 + rb.HOLD_BLOCK)
+        want = cuda_step.block_forces_streamed_reference(
+            cfg, *(t[rows] for t in b), *b, row_g0=r0, biased=flag)
+        for g, w in zip(got, want):
+            assert float((g[rows] - w).abs().max()) <= \
+                TOL["float32"] * scale
+
+
+def test_symmetric_forces_memory_within_the_budget_on_card(dev):
+    """At N=1M (32 row launches) the pass allocates at most
+    K2_WORKSPACE_BYTES, its (2, N) fp32 running sums and its two
+    outputs."""
+    n = 1 << 20
+    cfg = SimConfig(force_mode="fast", dtype="float32", kernel="cuda")
+    b = _random_square(n, dev, 5)
+    cuda_step.symmetric_forces(cfg, *b, biased=False)  # warm the allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    before = cuda_step.symmetric_forces.launches
+    out = cuda_step.symmetric_forces(cfg, *b, biased=False)
+    torch.cuda.synchronize()
+    assert cuda_step.symmetric_forces.launches == before + 32
+    assert bool(torch.isfinite(out[0]).all())
+    assert torch.cuda.max_memory_allocated(dev) - base <= \
+        cuda_step.K2_WORKSPACE_BYTES + 2 * n * 4 + 2 * n * 4
+
+
+@pytest.mark.parametrize("case, symmetric", [
+    ("fp32", True), ("bf16", True), ("fp64", False), ("compensated", False),
+    ("row_slice", False), ("unequal_offsets", False)])
+def test_symmetric_forces_takes_the_square_fp32_plain_calls_on_card(
+        case, symmetric, dev):
+    """Past STREAMED_ABOVE block_forces_auto hands the square fp32 or bf16
+    call with plain sums to symmetric_forces (2 row launches at
+    N=262144+77) and keeps K2 in one launch, bit for bit
+    block_forces_streamed, for fp64, compensated sums, a row slice and
+    blocks at other offsets."""
+    n = 262144 + 77
+    b = _random_square(n, dev, 6)
+    dtype = {"bf16": "bfloat16", "fp64": "float64"}.get(case, "float32")
+    cfg = SimConfig(force_mode="fast", dtype=dtype, kernel="cuda")
+    b = tuple(t.to(getattr(torch, dtype)) for t in b)
+    rows = b[:4] if case != "row_slice" else tuple(t[:65536] for t in b)
+    kw = dict(row_g0=0, col_g0=512 if case == "unequal_offsets" else 0,
+              biased=True,
+              accum="compensated" if case == "compensated" else "plain")
+    before = (cuda_step.symmetric_forces.launches,
+              cuda_step.block_forces_streamed.launches)
+    got = cuda_step.block_forces_auto(cfg, *rows, *b, **kw)
+    after = (cuda_step.symmetric_forces.launches,
+             cuda_step.block_forces_streamed.launches)
+    assert after == ((before[0] + 2, before[1]) if symmetric
+                     else (before[0], before[1] + 1))
+    if not symmetric:
+        want = cuda_step.block_forces_streamed(cfg, *rows, *b, **kw)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+# ---------------------------------------------------------------------------
 # the speed tools on the card
 # ---------------------------------------------------------------------------
 
@@ -1125,15 +1298,18 @@ def test_row_block_sabotage_is_near_the_symmetric_main_path_on_card(dev):
 
 
 def test_k2_hold_on_card(dev):
-    """The scaling grid's hold at the smallest N that runs K2: K2's first
-    pass against its plain version on four misaligned row blocks."""
+    """The scaling grid's hold at the smallest N past K1's range: the first
+    pass, the symmetric pass in one row launch, against K2's plain version
+    on four misaligned row blocks."""
     from parallel_nbody_tpu_torch.benchmarks import run_benchmarks as rb
     cfg = SimConfig(force_mode="fast", dtype="float32", kernel="cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     st = random_state(262144, cfg, gen, device=dev)
     cuda_step.block_forces_streamed.launches = 0
+    cuda_step.symmetric_forces.launches = 0
     got = rb.hold_first_pass(cfg, st)
-    assert cuda_step.block_forces_streamed.launches == 1
+    assert cuda_step.block_forces_streamed.launches == 0
+    assert cuda_step.symmetric_forces.launches == 1
     assert got["ok"], got
 
 

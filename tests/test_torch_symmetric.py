@@ -1,8 +1,10 @@
-"""The symmetric pass of K1's square fp32 case on the CPU: its plain version
+"""The symmetric pass of the square fp32 case on the CPU: its plain version
 (``ops.cuda_step.symmetric_partials``, ``block_forces_symmetric_reference``)
-against K1's plain version, the dispatch that chooses it
-(``takes_symmetric``), the programs that hand it one block of bodies, and
-the census of its loops.  Imports no JAX.
+against K1's plain version, its row launches' plain version
+(``symmetric_row_partials``, ``symmetric_forces_reference``) against the
+one launch's, the dispatch that chooses it (``takes_symmetric``), the
+programs that hand it one block of bodies, and the census of its loops.
+Imports no JAX.
 
 Tolerances and why:
   - against ``block_forces_reference``: the same pair terms summed in
@@ -154,6 +156,12 @@ def _dispatch_case(case):
         "row_slice": (torch.float32, 256, 384, kw),
         "top_of_k1_range": (torch.float32, top, top, kw),
         "past_k1_range": (torch.float32, top + 128, top + 128, kw),
+        "past_k1_range_fp64": (torch.float64, top + 128, top + 128, kw),
+        "past_k1_range_compensated": (torch.float32, top + 128, top + 128,
+                                      dict(kw, accum="compensated")),
+        "past_k1_range_row_slice": (torch.float32, 65536, top + 128, kw),
+        "past_k1_range_unequal_offsets": (torch.float32, top + 128,
+                                          top + 128, dict(kw, col_g0=512)),
     }[case]
 
 
@@ -161,21 +169,154 @@ def _dispatch_case(case):
     ("square_fp32", True), ("square_bf16", True), ("fp64", False),
     ("compensated", False), ("off_diagonal", False),
     ("equal_offsets_not_zero", True), ("row_slice", False),
-    ("top_of_k1_range", True), ("past_k1_range", False)])
+    ("top_of_k1_range", True), ("past_k1_range", True),
+    ("past_k1_range_fp64", False), ("past_k1_range_compensated", False),
+    ("past_k1_range_row_slice", False),
+    ("past_k1_range_unequal_offsets", False)])
 def test_takes_symmetric(case, want):
+    """The rule holds at any N: past K1's range it sends the square fp32
+    call to ``symmetric_forces`` in place of K2, and leaves fp64,
+    compensated sums, row slices and blocks at other offsets to K2."""
     dtype, m, k, kw = _dispatch_case(case)
     assert cuda_step.takes_symmetric(dtype, m, k, **kw) is want
 
 
 def test_k1_range_workspace_fits_k2_budget():
-    """The range's bound: at STREAMED_ABOVE the (tiles, 2, N) fp32
-    workspace is 256 MiB, within K2's budget; at N=1M it would be 16 GiB."""
-    def ws_bytes(n):
-        return -(-n // cuda_step.SYMMETRIC_TILE) * 2 * n * 4
+    """The one-launch layout, (tiles, 2, N) fp32, is 256 MiB at
+    STREAMED_ABOVE and 1 GiB at 262144, within K2's budget, where
+    ``symmetric_row_tiles`` takes all rows in one launch; at N=1M it would
+    be 16 GiB, and the row launches of 65 tiles keep the first, largest,
+    launch's two workspaces (own bodies' slots, later bodies' slots) within
+    the budget, in 32 launches."""
+    tile = cuda_step.SYMMETRIC_TILE
 
+    def ws_bytes(n):
+        return -(-n // tile) * 2 * n * 4
+
+    def first_launch_bytes(n, tiles):
+        rows = min(n, tiles * tile)
+        return 8 * (-(-n // tile) * rows + tiles * (n - rows))
+
+    budget = cuda_step.K2_WORKSPACE_BYTES
     top = cuda_step.STREAMED_ABOVE
-    assert ws_bytes(top) == 1 << 28 <= cuda_step.K2_WORKSPACE_BYTES
+    assert ws_bytes(top) == 1 << 28 <= budget
+    assert cuda_step.symmetric_row_tiles(top) == top // tile
+    assert ws_bytes(1 << 18) == budget
+    assert cuda_step.symmetric_row_tiles(1 << 18) == (1 << 18) // tile
     assert ws_bytes(1 << 20) == 16 << 30
+    tiles = cuda_step.symmetric_row_tiles(1 << 20)
+    assert tiles == 65 and -(-(1 << 20) // tile // tiles) == 32
+    assert first_launch_bytes(1 << 20, tiles) <= budget \
+        < first_launch_bytes(1 << 20, tiles + 1)
+
+
+@pytest.mark.parametrize("budget, n, want", [
+    (1 << 26, 131072 + 77, 34), (4 << 20, 2600, 6), (40000, 2600, 1),
+    (1, 1537, 1)])
+def test_symmetric_row_tiles_follow_the_budget(budget, n, want,
+                                               monkeypatch):
+    """The rows a launch takes come from K2_WORKSPACE_BYTES, so a lowered
+    budget forces several launches (at least one tile each)."""
+    monkeypatch.setattr(cuda_step, "K2_WORKSPACE_BYTES", budget)
+    assert cuda_step.symmetric_row_tiles(n) == want
+
+
+@pytest.mark.parametrize("n, tiles", [(1537, 1), (1537, 2), (1537, 4),
+                                      (2600, 3), (131072 + 77, 34),
+                                      (1 << 20, 65), (1 << 20, 2048)])
+def test_launch_bytes_set_the_row_tiles(n, tiles, monkeypatch):
+    """A budget of ``symmetric_launch_bytes(n, tiles)`` gives launches of
+    exactly ``tiles`` row tiles, and a byte less gives fewer: how the tests
+    and the smoke choose the launches, the budget being the one setting."""
+    budget = cuda_step.symmetric_launch_bytes(n, tiles)
+    monkeypatch.setattr(cuda_step, "K2_WORKSPACE_BYTES", budget)
+    assert cuda_step.symmetric_row_tiles(n) == tiles
+    monkeypatch.setattr(cuda_step, "K2_WORKSPACE_BYTES", budget - 1)
+    assert cuda_step.symmetric_row_tiles(n) == max(1, tiles - 1)
+
+
+def _launch_tiles(monkeypatch, n, tiles):
+    """Set K2_WORKSPACE_BYTES so that ``symmetric_forces`` over ``n`` bodies
+    takes ``tiles`` row tiles a launch ("all": one launch)."""
+    nt = -(-n // cuda_step.SYMMETRIC_TILE)
+    tiles = nt if tiles == "all" else tiles
+    monkeypatch.setattr(cuda_step, "K2_WORKSPACE_BYTES",
+                        cuda_step.symmetric_launch_bytes(n, tiles))
+    assert cuda_step.symmetric_row_tiles(n) == tiles
+
+
+def _row_case(n, biased):
+    b = _t(glibc_like(n, 34, ((3, n - 2), (511, 512), (600, 1100))))
+    if biased in ("flag_true", "flag_false"):
+        biased = torch.tensor(biased == "flag_true")
+    return b, biased
+
+
+@pytest.mark.parametrize("row_tiles", [1, 2, "all"])
+@pytest.mark.parametrize("biased", [True, False, "flag_true", "flag_false"])
+@pytest.mark.parametrize("n", [1537, 2600])
+def test_symmetric_row_launches_plain_is_one_launch(n, biased, row_tiles,
+                                                    monkeypatch):
+    """The row launches' plain version folds each body's slots in tile
+    order across launches: bit for bit the one launch's forces
+    (``block_forces_symmetric_reference``), with one tile a launch,
+    several, or all (as K2_WORKSPACE_BYTES sets them), at ragged N with
+    coincident pairs."""
+    b, biased = _row_case(n, biased)
+    cfg = _cfg()
+    want = cuda_step.block_forces_symmetric_reference(cfg, *b, biased=biased)
+    _launch_tiles(monkeypatch, n, row_tiles)
+    got = cuda_step.symmetric_forces_reference(cfg, *b, biased=biased)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("t0, t1", [(0, 1), (0, 3), (1, 3), (2, 6), (5, 6),
+                                    (0, 6)])
+def test_symmetric_row_partials_are_the_one_launch_slots(t0, t1):
+    """A row launch's two workspaces hold the one-launch workspace's slots:
+    ``own`` those of its bodies from tile t0 on, ``beyond`` those of the
+    later bodies over its row tiles."""
+    x, y, m, r = _t(glibc_like(2600, 35, ((1, 2000),)))
+    tile = cuda_step.SYMMETRIC_TILE
+    ws = cuda_step.symmetric_partials(x, y, m, r, biased=True)
+    own, beyond = cuda_step.symmetric_row_partials(x, y, m, r, biased=True,
+                                                   t0=t0, t1=t1)
+    r0, r1 = t0 * tile, min(2600, t1 * tile)
+    assert torch.equal(own, ws[t0:, :, r0:r1])
+    assert torch.equal(beyond, ws[t0:t1, :, r1:])
+
+
+def test_symmetric_forces_on_the_cpu_is_its_plain_version(monkeypatch):
+    """On CPU tensors ``symmetric_forces`` runs its plain version, in the
+    launches the budget sets, counts nothing, and takes fp32 compute
+    only."""
+    b, _ = _row_case(2600, True)
+    _launch_tiles(monkeypatch, 2600, 2)
+    before = cuda_step.symmetric_forces.launches
+    got = cuda_step.symmetric_forces(_cfg(), *b, biased=True)
+    want = cuda_step.block_forces_symmetric_reference(_cfg(), *b,
+                                                      biased=True)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert cuda_step.symmetric_forces.launches == before
+    b16 = [t.to(torch.bfloat16) for t in b]
+    got = cuda_step.symmetric_forces(_cfg("bfloat16"), *b16, biased=True)
+    assert all(g.dtype == torch.bfloat16 for g in got)
+    with pytest.raises(TypeError):
+        cuda_step.symmetric_forces(_cfg("float64"),
+                                   *[t.double() for t in b], biased=True)
+
+
+def test_block_forces_auto_on_the_cpu_keeps_k2_past_the_range(monkeypatch):
+    """Past STREAMED_ABOVE the square fp32 call on CPU tensors is still
+    K2's plain version, bit for bit, as before the symmetric pass took
+    that call on the card."""
+    monkeypatch.setattr(cuda_step, "STREAMED_ABOVE", 1024)
+    b, _ = _row_case(1537, True)
+    cfg = _cfg()
+    got = cuda_step.block_forces_auto(cfg, *b, *b, biased=True)
+    want = cuda_step.block_forces_streamed_reference(cfg, *b, *b,
+                                                     biased=True)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 @pytest.mark.parametrize("layout, want", [
@@ -233,14 +374,15 @@ def test_layout_constants_match_the_source():
         k["kSub"], k["kRows"])
 
 
-def _symmetric_listing(loops, nested_at=None):
-    """A listing of the symmetric kernel's fp32 instantiation whose loops
+def _symmetric_listing(loops, nested_at=None,
+                       kernel="block_forces_symmetric_kernel"):
+    """A listing of a symmetric kernel's fp32 instantiation whose loops
     hold the given opcodes (each with an LDS.128 and its backward branch,
     a barrier between them); ``nested_at`` wraps the loops from that index
     on in an outer loop without a barrier, as the diagonal's loop over its
     row and column blocks is."""
     lines = ["\tFunction : _ZN53_GLOBAL__N__1_forces_symmetric_cu_a1b2c3d4"
-             "29block_forces_symmetric_kernelIfEEvPKT_"]
+             "%d%sIfEEvPKT_" % (len(kernel), kernel)]
     addr, outer = 0, None
     for k, body in enumerate(loops):
         if k == nested_at:
@@ -260,11 +402,13 @@ def _symmetric_listing(loops, nested_at=None):
     return "\n".join(lines)
 
 
-def test_sass_census_tells_the_symmetric_loops_apart():
-    """The symmetric kernel's two loops with shuffles count 64 pairs a pass
-    (8 columns by 8 rows) and are told apart by length; its diagonal's
-    three K1 loops, nested in a loop without a barrier, count 8 and keep
-    K1's roles; the outer loop is no inner loop."""
+@pytest.mark.parametrize("kernel", sass_census.SYMMETRIC_KERNELS)
+def test_sass_census_tells_the_symmetric_loops_apart(kernel):
+    """Each symmetric kernel's (one launch, row launches) two loops with
+    shuffles count 64 pairs a pass (8 columns by 8 rows) and are told apart
+    by length; its diagonal's three K1 loops, nested in a loop without a
+    barrier, count 8 and keep K1's roles; the outer loop is no inner
+    loop."""
     shfl = ["SHFL.BFLY PT, R3, R4, 0x4, 0x1f", "FSEL R3, R4, R5, P0",
             "MUFU.RSQ R4, R7"]
     sym_const = shfl + ["FADD R9, R9, R5"]
@@ -273,8 +417,9 @@ def test_sass_census_tells_the_symmetric_loops_apart():
     const = ["FADD R9, -R3, R9", "FADD R9, R9, R5", "MUFU.RSQ R4, R7"]
     unbiased = ["FADD R9, -R3, R9", "MUFU.RSQ R4, R7"]
     rows = sass_census.census(_symmetric_listing(
-        [sym_const, shfl, unbiased, per_pair, const], nested_at=2))
-    assert [r[0] for r in rows] == ["block_forces_symmetric_kernel<f>"] * 5
+        [sym_const, shfl, unbiased, per_pair, const], nested_at=2,
+        kernel=kernel))
+    assert [r[0] for r in rows] == [kernel + "<f>"] * 5
     assert [r[3] for r in rows] == [64, 64, 8, 8, 8]
     roles = sass_census.loop_roles(rows)
     assert [roles[r[0], r[1]] for r in rows] == [
